@@ -1,0 +1,1 @@
+"""Ops of the port: plain PyTorch versions and hand-written CUDA kernels."""

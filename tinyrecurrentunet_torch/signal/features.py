@@ -1,0 +1,99 @@
+"""The featurizer: waveform <-> (..., T, F, C) feature tensors.
+
+Counterpart of `tinyrecurrentunet_tpu/signal/features.py` (offline path):
+rectangular-window STFT, then the channels in config order — normalised dB
+log-magnitude clamped to [-1, 1], PCEN, and sin/cos of the phase unwrapped
+along time (axis -2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tinyrecurrentunet_torch.config import FeaturizerConfig
+from tinyrecurrentunet_torch.signal.pcen import pcen
+from tinyrecurrentunet_torch.signal.phase import demod_phase
+from tinyrecurrentunet_torch.signal.stft import istft as _istft
+from tinyrecurrentunet_torch.signal.stft import stft as _stft
+
+
+def amp_to_db(magnitude: torch.Tensor, ref_level_db: float = 25.0) -> torch.Tensor:
+    """20*log10(clamp(mag, 1e-7)) - ref."""
+    return 20.0 * torch.log10(torch.clamp(magnitude, min=1e-7)) - ref_level_db
+
+
+def db_to_amp(db_spec: torch.Tensor) -> torch.Tensor:
+    """10^(db/20)."""
+    return torch.pow(10.0, db_spec / 20.0)
+
+
+def norm_db(db_spec: torch.Tensor, min_level_db: float = -100.0) -> torch.Tensor:
+    """Scale dB values into [-1, 1]."""
+    return torch.clamp(((db_spec - min_level_db) / -min_level_db) * 2.0 - 1.0, -1.0, 1.0)
+
+
+def denorm_db(
+    norm_spec: torch.Tensor, min_level_db: float = -100.0, ref_level_db: float = 25.0
+) -> torch.Tensor:
+    """Inverse of norm_db, re-adding the reference level."""
+    return (
+        ((torch.clamp(norm_spec, -1.0, 1.0) + 1.0) / 2.0) * -min_level_db
+        + min_level_db
+        + ref_level_db
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Featurizer:
+    """Waveform <-> feature-tensor transforms, parameterised by config."""
+
+    config: FeaturizerConfig = dataclasses.field(default_factory=FeaturizerConfig)
+
+    def spectrogram(self, audio: torch.Tensor) -> torch.Tensor:
+        """Complex STFT (..., T, F); rectangular window, center/reflect."""
+        return _stft(audio, n_fft=self.config.n_fft, hop_length=self.config.hop_length)
+
+    def _channel(self, name: str, magnitude, real_demod, imag_demod):
+        c = self.config
+        if name == "logmag":
+            return norm_db(amp_to_db(magnitude, c.ref_level_db), c.min_level_db)
+        if name == "pcen":
+            return pcen(
+                magnitude,
+                eps=c.pcen_eps,
+                s=c.pcen_s,
+                alpha=c.pcen_alpha,
+                delta=c.pcen_delta,
+                r=c.pcen_r,
+                dim=-2,
+            )
+        if name == "real_demod":
+            return real_demod
+        if name == "imag_demod":
+            return imag_demod
+        raise ValueError(name)
+
+    def features_from_spec(self, spec: torch.Tensor) -> torch.Tensor:
+        """Complex spec (..., T, F) -> features (..., T, F, C)."""
+        magnitude = spec.abs()
+        real_demod, imag_demod = demod_phase(spec.angle(), dim=-2)
+        chans = [
+            self._channel(name, magnitude, real_demod, imag_demod)
+            for name in self.config.channels
+        ]
+        return torch.stack(chans, dim=-1)
+
+    def __call__(self, audio: torch.Tensor) -> torch.Tensor:
+        """Waveform (..., L) -> features (..., T, F, C)."""
+        return self.features_from_spec(self.spectrogram(audio))
+
+    def split_channels(self, features: torch.Tensor) -> dict:
+        """(..., C) feature tensor -> {channel_name: (...)} dict."""
+        return {name: features[..., i] for i, name in enumerate(self.config.channels)}
+
+    def istft(self, spec: torch.Tensor, length: int | None = None) -> torch.Tensor:
+        return _istft(
+            spec, n_fft=self.config.n_fft, hop_length=self.config.hop_length, length=length
+        )
