@@ -9,9 +9,12 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from tinyrecurrentunet_torch.config import load_config as torch_load_config
 from tinyrecurrentunet_tpu.config import load_config as jax_load_config
+
+torch.set_num_threads(2)  # beside JAX's pools under several test workers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "config", "*.json")))
@@ -58,7 +61,10 @@ def test_port_sources_never_import_jax_or_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, chip_smoke, tinyrecurrentunet_torch.infer.denoise, "
-        "tinyrecurrentunet_torch.ops.cuda_gru, tinyrecurrentunet_torch.weights; "
+        "tinyrecurrentunet_torch.ops.cuda_gru, tinyrecurrentunet_torch.weights, "
+        "tinyrecurrentunet_torch.losses, tinyrecurrentunet_torch.train.loop, "
+        "tinyrecurrentunet_torch.train.checkpoint, tinyrecurrentunet_torch.data.dataset, "
+        "tinyrecurrentunet_torch.data.loader, tinyrecurrentunet_torch.utils.metrics; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tinyrecurrentunet_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tinyrecurrentunet_torch.config import load_config as tload_config
 from tinyrecurrentunet_torch.data.audio_io import read_wav, write_wav
@@ -23,6 +24,8 @@ from tinyrecurrentunet_tpu.config import load_config as jload_config
 from tinyrecurrentunet_tpu.infer.denoise import Denoiser as JaxDenoiser
 from tinyrecurrentunet_tpu.models import TRUNet as JaxTRUNet
 from tinyrecurrentunet_tpu.train.checkpoint import load_pretrained_variables
+
+torch.set_num_threads(2)  # beside JAX's pools under several test workers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "config", "proc16k.json")

@@ -19,6 +19,8 @@ from tinyrecurrentunet_torch.ops import gru as tgru
 from tinyrecurrentunet_tpu.ops.gru import gru_scan as jax_gru_scan
 from tinyrecurrentunet_tpu.ops.pallas_gru import gru_scan_pallas
 
+torch.set_num_threads(2)  # beside JAX's pools under several test workers
+
 ATOL = 1e-5
 
 
@@ -130,7 +132,7 @@ def test_rows_per_block(rows, hidden, expect):
 
 
 def test_build_names_every_source_and_hashes_its_content(tmp_path, monkeypatch):
-    assert build.kernel_names() == ["gru_fwd"]
+    assert build.kernel_names() == ["gru_fwd", "gru_train"]
     path = build.library_path("gru_fwd")
     assert path.parent == build.BUILD_DIR and path.name.startswith("libgru_fwd-")
     src = tmp_path / "gru_fwd.cu"

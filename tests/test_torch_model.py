@@ -36,6 +36,8 @@ from tinyrecurrentunet_tpu.models import phm as jphm
 from tinyrecurrentunet_tpu.ops import conv as jconv
 from tinyrecurrentunet_tpu.signal import Featurizer as JFeaturizer
 
+torch.set_num_threads(2)  # beside JAX's pools under several test workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 

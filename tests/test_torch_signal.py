@@ -26,6 +26,8 @@ from tinyrecurrentunet_torch.signal import Featurizer as TorchFeaturizer
 from tinyrecurrentunet_tpu.config import FeaturizerConfig as JaxFeaturizerConfig
 from tinyrecurrentunet_tpu.signal import Featurizer as JaxFeaturizer
 
+torch.set_num_threads(2)  # beside JAX's pools under several test workers
+
 # the JAX signal package re-exports functions under its modules' names
 jstft = importlib.import_module("tinyrecurrentunet_tpu.signal.stft")
 jphase = importlib.import_module("tinyrecurrentunet_tpu.signal.phase")

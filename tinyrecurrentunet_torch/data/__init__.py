@@ -1,1 +1,1 @@
-"""Host-side data helpers of the port (numpy/scipy only)."""
+"""Data of the port: WAV I/O, the synthetic dataset and the batching loader."""

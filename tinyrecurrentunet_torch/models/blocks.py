@@ -1,18 +1,23 @@
-"""TRU-Net building blocks (inference), counterparts of
+"""TRU-Net building blocks, counterparts of
 `tinyrecurrentunet_tpu/models/blocks.py`.
 
 Activations are (N, L, C), channels last, as in the JAX package. Submodule
 and parameter names follow the flax tree (`Dense_0`, `BatchNorm_1`,
 `GRU_0`, `wi_fwd`, ...), so `weights.state_dict_from_variables` is a
-straight mapping. Parameters start at zero (BatchNorm at identity); load a
-state_dict to use a model.
+straight mapping. Parameters start at zero (BatchNorm at identity): load a
+state_dict, or draw flax's initial distributions with `init_parameters`.
 
-BatchNorm runs in eval mode from the running statistics, eps 1e-5, in
-flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias.
+BatchNorm follows flax (eps 1e-5, momentum 0.99), in flax's order
+(x - mean) * (rsqrt(var + eps) * scale) + bias. In eval mode it reads the
+running statistics. In training mode (`Module.train()`) it normalises by the
+batch mean and the biased batch variance E[x^2] - E[x]^2, clipped at 0, and
+updates the running statistics as ra = 0.99 ra + 0.01 batch.
 
 The GRU projects its inputs with one matmul and hands the recurrence to
-`ops.cuda_gru.gru_recurrence`: the CUDA kernel for tensors on the card, the
-plain PyTorch version for tensors on the CPU.
+`ops.cuda_gru`: in eval mode `gru_recurrence` (kernel `gru_fwd`, no
+gradient on the card), in training mode the autograd Function
+`GRURecurrence` (kernels `gru_fwd_train` and the BPTT). Tensors on the CPU
+run the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -30,6 +35,20 @@ def _zeros(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
 
 
+def _draw_(param: torch.Tensor, generator: torch.Generator, fan_in: int = 0, bound: float = 0.0):
+    """Fill `param` with a draw made on the CPU from `generator`: flax's
+    lecun_normal (truncated normal in +-2 std, variance 1/fan_in after the
+    truncation) for `fan_in`, else U(-bound, bound). Drawing on the CPU makes
+    the weights of a seed the same on every device."""
+    values = torch.empty(param.shape, dtype=torch.float32)
+    if fan_in:
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(values, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    else:
+        nn.init.uniform_(values, -bound, bound, generator=generator)
+    param.copy_(values)
+
+
 class Dense(nn.Module):
     """flax Dense: x @ W.T + b with W in torch's (out, in) layout."""
 
@@ -38,12 +57,18 @@ class Dense(nn.Module):
         self.weight = _zeros(out_features, in_features, device=device)
         self.bias = _zeros(out_features, device=device)
 
+    def init_params(self, generator: torch.Generator):
+        _draw_(self.weight, generator, fan_in=self.weight.shape[1])
+        self.bias.zero_()
+
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) axis."""
+    """flax BatchNorm over the last (channel) axis; see the module docstring."""
+
+    MOMENTUM = 0.99  # flax's default, which every BatchNorm of the JAX package uses
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -53,9 +78,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
+    def init_params(self, generator: torch.Generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class Conv(nn.Module):
@@ -65,6 +106,10 @@ class Conv(nn.Module):
         super().__init__()
         self.weight = _zeros(out_features, in_features, kernel, device=device)
         self.bias = _zeros(out_features, device=device)
+
+    def init_params(self, generator: torch.Generator):
+        _draw_(self.weight, generator, fan_in=self.weight.shape[1] * self.weight.shape[2])
+        self.bias.zero_()
 
 
 class StandardConv1d(nn.Module):
@@ -91,6 +136,10 @@ class DepthwiseSeparableConv1d(nn.Module):
         self.depthwise_weight = _zeros(features, 1, kernel, device=device)
         self.depthwise_bias = _zeros(features, device=device)
         self.BatchNorm_1 = BatchNorm(features, device=device)
+
+    def init_params(self, generator: torch.Generator):
+        _draw_(self.depthwise_weight, generator, fan_in=self.depthwise_weight.shape[-1])
+        self.depthwise_bias.zero_()
 
     def forward(self, x):
         x = torch.relu(self.BatchNorm_0(self.Dense_0(x)))
@@ -120,12 +169,17 @@ class GRU(nn.Module):
             self.register_parameter(f"bi_{d}", _zeros(3 * hidden, device=device))
             self.register_parameter(f"bh_{d}", _zeros(3 * hidden, device=device))
 
+    def init_params(self, generator: torch.Generator):
+        """torch.nn.GRU's U(-1/sqrt(H), 1/sqrt(H)) for every weight and bias."""
+        for param in self.parameters(recurse=False):
+            _draw_(param, generator, bound=1.0 / self.hidden**0.5)
+
     def _direction(self, x, h0, d: str, reverse: bool):
         x_proj = gru_project_inputs(x, getattr(self, f"wi_{d}"), getattr(self, f"bi_{d}"))
-        return cuda_gru.gru_recurrence(
-            x_proj.contiguous(), h0, getattr(self, f"wh_{d}"), getattr(self, f"bh_{d}"),
-            reverse=reverse,
-        )
+        args = (x_proj.contiguous(), h0, getattr(self, f"wh_{d}"), getattr(self, f"bh_{d}"))
+        if self.training:
+            return cuda_gru.GRURecurrence.apply(*args, reverse)
+        return cuda_gru.gru_recurrence(*args, reverse=reverse)
 
     def forward(self, x, h0=None):
         zeros = x.new_zeros((x.shape[0], self.hidden))
@@ -168,9 +222,28 @@ class TrCNNBlock(nn.Module):
         self.tr_bias = _zeros(features, device=device)
         self.BatchNorm_1 = BatchNorm(features, device=device) if final_norm else None
 
+    def init_params(self, generator: torch.Generator):
+        w = self.tr_weight
+        _draw_(w, generator, fan_in=w.shape[0] * w.shape[2])
+        self.tr_bias.zero_()
+
     def forward(self, x):
         x = torch.relu(self.BatchNorm_0(self.Dense_0(x)))
         x = conv_ops.conv_transpose1d(x, self.tr_weight, self.tr_bias, self.stride, self.stride // 2)
         if self.BatchNorm_1 is not None:
             x = torch.relu(self.BatchNorm_1(x))
         return x
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of `model` from flax's initial distributions, in
+    the order of `model.modules()`: lecun_normal for Dense, Conv, depthwise
+    and transposed-conv kernels, zeros for their biases, BatchNorm at
+    identity (scale 1, bias 0, running mean 0 and variance 1), torch.nn.GRU's
+    uniform for the GRUs. The same generator state gives the same weights on
+    any device; the numbers differ from flax's, whose generator differs."""
+    for module in model.modules():
+        if hasattr(module, "init_params"):
+            module.init_params(generator)
+    return model

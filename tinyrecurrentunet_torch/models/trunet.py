@@ -9,6 +9,10 @@ Forward contract:
     x: (B, T, F, C_in) or (T, F, C_in)
     y: (B, T, F, 2*C_in) — stacked mixture/noise feature sets
     tgru_h: (B, F_bottleneck, tgru_hidden), the TGRU carry
+
+The input and the carry are cast to the parameters' dtype: float32, or
+float64 after `model.double()` for a float64 reference run on the CPU (the
+CUDA kernels take float32 only).
 """
 
 from __future__ import annotations
@@ -82,7 +86,8 @@ class TRUNet(nn.Module):
         if unbatched:
             x = x[None]
         batch, time, freqs, chans = x.shape
-        x = x.to(torch.float32)
+        dtype = self.StandardConv1d_0.Conv_0.weight.dtype
+        x = x.to(dtype)
 
         # encoder: frame-local convs over frequency, time folded into batch
         z = x.reshape(batch * time, freqs, chans)
@@ -99,7 +104,7 @@ class TRUNet(nn.Module):
         z = z.transpose(1, 2).reshape(batch * fb, time, cfg.fgru_out)
         h0 = None
         if tgru_h0 is not None:
-            h0 = tgru_h0.to(torch.float32).reshape(batch * fb, cfg.tgru_hidden)
+            h0 = tgru_h0.to(dtype).reshape(batch * fb, cfg.tgru_hidden)
         z, h_final = self.GRUBlock_1(z, h0)
         tgru_h = h_final.reshape(batch, fb, cfg.tgru_hidden)
         z = z.reshape(batch, fb, time, cfg.tgru_out)

@@ -11,7 +11,8 @@ JAX layouts by `conv_weight_from_jax` / `conv_transpose_weight_from_jax`.
 The JAX transposed conv is zero-stuffing followed by an unflipped
 correlation; torch's conv_transpose1d correlates with the flipped kernel, so
 the taps are flipped once, in the weight conversion:
-w_torch[cin, cout, j] = w_jax[k-1-j, cin, cout].
+w_torch[cin, cout, j] = w_jax[k-1-j, cin, cout]. The `*_to_jax` functions
+are the exact inverses, for weights the port writes back in JAX's layout.
 """
 
 from __future__ import annotations
@@ -29,6 +30,16 @@ def conv_weight_from_jax(w: np.ndarray) -> np.ndarray:
 def conv_transpose_weight_from_jax(w: np.ndarray) -> np.ndarray:
     """(k, Cin, Cout) -> torch conv_transpose1d weight (Cin, Cout, k), taps flipped."""
     return np.ascontiguousarray(np.transpose(w[::-1], (1, 2, 0)))
+
+
+def conv_weight_to_jax(w: np.ndarray) -> np.ndarray:
+    """Inverse of `conv_weight_from_jax`: (Cout, Cin/groups, k) -> (k, Cin/groups, Cout)."""
+    return np.ascontiguousarray(np.transpose(w, (2, 1, 0)))
+
+
+def conv_transpose_weight_to_jax(w: np.ndarray) -> np.ndarray:
+    """Inverse of `conv_transpose_weight_from_jax`: (Cin, Cout, k) -> (k, Cin, Cout)."""
+    return np.ascontiguousarray(np.transpose(w, (2, 0, 1))[::-1])
 
 
 def conv1d(

@@ -1,15 +1,29 @@
-"""Wrapper of the CUDA forward GRU recurrence (`csrc/gru_fwd.cu`).
+"""Wrappers of the CUDA GRU recurrence kernels (`csrc/gru_fwd.cu`,
+`csrc/gru_train.cu`) and the trainable recurrence `GRURecurrence`.
 
-`gru_recurrence(x_proj, h0, wh, bh, reverse)` takes the projected inputs
-x_proj (rows, T, 3H), h0 (rows, H), wh (H, 3H) and bh (3H,), all float32,
-and returns (outputs (rows, T, H), h after the last step walked (rows, H)).
+All tensors are float32: x_proj (rows, T, 3H), h0 (rows, H), wh (H, 3H),
+bh (3H,); outputs (rows, T, H).
 
-- A CPU tensor runs the plain PyTorch version (`ops/gru.py`).
-- A CUDA tensor launches the kernel or raises: nothing falls back to the
-  plain version and nothing moves to the CPU.
+- `gru_recurrence`: the forward recurrence of inference, (outputs, h after
+  the last step walked). Kernel `gru_fwd`.
+- `gru_recurrence_train`: the same, also returning the residuals saved
+  (rows, T, 4H) = (r, z, n, hn) per step. Kernel `gru_fwd_train`.
+- `gru_recurrence_bwd`: the BPTT, (d_xp, dWh, dbh, dh0). On a card it runs
+  `bptt` (kernel `gru_bwd`: d_xp, dh0), then `dw_partial` and `dw_sum`
+  (kernels `gru_dw_partial` and `gru_dw_sum`: dWh, dbh); these three take
+  CUDA tensors only.
+- `GRURecurrence`: a `torch.autograd.Function` over (x_proj, h0, wh, bh,
+  reverse) whose forward is `gru_recurrence_train` and whose backward is
+  `gru_recurrence_bwd`. The input projection and its gradients stay plain
+  matmuls outside, as in the JAX package.
 
-`launches` counts the kernel's launches: the wrapper adds one where it
-launches the kernel, and nowhere else.
+A CPU tensor runs the plain PyTorch version (`ops/gru.py`). A CUDA tensor
+launches the kernels or raises: nothing falls back to the plain version and
+nothing moves to the CPU.
+
+Each kernel has a launch count (`launch_counts()`): its wrapper adds one
+where it launches the kernel, and nowhere else. `launches` is the count of
+`gru_fwd`.
 """
 
 from __future__ import annotations
@@ -22,9 +36,31 @@ import torch
 from tinyrecurrentunet_torch.ops import build
 from tinyrecurrentunet_torch.ops import gru as gru_ops
 
-launches = 0
+launches = 0  # gru_fwd
+fwd_train_launches = 0
+bwd_launches = 0
+dw_partial_launches = 0
+dw_sum_launches = 0
 
 _MAX_HIDDEN = 1024  # one thread per hidden unit, one block per row tile
+_DW_TILE = 64  # the output tile of gru_dw_partial_kernel
+_DW_MIN_STEPS = 256  # fewest row-steps one split of the weight gradient sums
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the counts were last reset."""
+    return {
+        "gru_fwd": launches,
+        "gru_fwd_train": fwd_train_launches,
+        "gru_bwd": bwd_launches,
+        "gru_dw_partial": dw_partial_launches,
+        "gru_dw_sum": dw_sum_launches,
+    }
+
+
+def reset_launch_counts():
+    global launches, fwd_train_launches, bwd_launches, dw_partial_launches, dw_sum_launches
+    launches = fwd_train_launches = bwd_launches = dw_partial_launches = dw_sum_launches = 0
 
 
 def rows_per_block(rows: int, hidden: int, num_sms: int) -> int:
@@ -34,6 +70,16 @@ def rows_per_block(rows: int, hidden: int, num_sms: int) -> int:
     while rpb < 8 and hidden * rpb * 2 <= 2048 and -(-rows // rpb) > num_sms:
         rpb *= 2
     return rpb
+
+
+def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
+    """(splits, row-steps per split) of the weight-gradient reduction over
+    `steps` = rows * T: about two blocks per SM over the 64 x 64 output
+    tiles, each split summing at least 256 row-steps."""
+    tiles = -(-hidden // _DW_TILE) * -(-3 * hidden // _DW_TILE)
+    splits = max(1, min(-(-steps // _DW_MIN_STEPS), -(-2 * num_sms // tiles)))
+    per_split = -(-steps // splits)
+    return -(-steps // per_split), per_split
 
 
 @functools.cache
@@ -49,27 +95,84 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(x_proj, h0, wh, bh):
-    tensors = {"x_proj": x_proj, "h0": h0, "wh": wh, "bh": bh}
+@functools.cache
+def _train_lib() -> ctypes.CDLL:
+    lib = build.load("gru_train")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        "trunet_gru_fwd_train": [ptr] * 7 + [i32] * 5 + [ptr],
+        "trunet_gru_bwd": [ptr] * 8 + [i32] * 5 + [ptr],
+        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 6 + [ptr],
+        "trunet_gru_dw_sum": [ptr] * 2 + [i32] * 2 + [ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i32
+    lib.trunet_gru_train_error_string.argtypes = [i32]
+    lib.trunet_gru_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_tensors(ref: torch.Tensor, **tensors):
     for name, t in tensors.items():
-        if t.device != x_proj.device:
-            raise ValueError(f"{name} is on {t.device}, x_proj on {x_proj.device}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, expected {ref.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_shape(name: str, t: torch.Tensor, shape: tuple):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+
+
+def _check(x_proj, h0, wh, bh):
+    _check_tensors(x_proj, x_proj=x_proj, h0=h0, wh=wh, bh=bh)
     if x_proj.dim() != 3 or x_proj.shape[-1] % 3:
         raise ValueError(f"x_proj must be (rows, T, 3H), got {tuple(x_proj.shape)}")
     rows, _, g = x_proj.shape
     hidden = g // 3
-    if tuple(h0.shape) != (rows, hidden):
-        raise ValueError(f"h0 must be {(rows, hidden)}, got {tuple(h0.shape)}")
-    if tuple(wh.shape) != (hidden, g):
-        raise ValueError(f"wh must be {(hidden, g)}, got {tuple(wh.shape)}")
-    if tuple(bh.shape) != (g,):
-        raise ValueError(f"bh must be {(g,)}, got {tuple(bh.shape)}")
+    _check_shape("h0", h0, (rows, hidden))
+    _check_shape("wh", wh, (hidden, g))
+    _check_shape("bh", bh, (g,))
     if not 1 <= hidden <= _MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} outside the kernel's 1..{_MAX_HIDDEN}")
+
+
+def _check_bwd(g, g_hT, out, saved, h0, wh):
+    _check_tensors(out, g=g, g_hT=g_hT, out=out, saved=saved, h0=h0, wh=wh)
+    if out.dim() != 3:
+        raise ValueError(f"out must be (rows, T, H), got {tuple(out.shape)}")
+    rows, steps, hidden = out.shape
+    _check_shape("g", g, (rows, steps, hidden))
+    _check_shape("saved", saved, (rows, steps, 4 * hidden))
+    for name, t in (("g_hT", g_hT), ("h0", h0)):
+        _check_shape(name, t, (rows, hidden))
+    _check_shape("wh", wh, (hidden, 3 * hidden))
+    if not 1 <= hidden <= _MAX_HIDDEN:
+        raise ValueError(f"hidden size {hidden} outside the kernel's 1..{_MAX_HIDDEN}")
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA one (kernel)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no GRU recurrence for device {t.device}")
+    return True
+
+
+def _raise_on_error(lib, err: int, kernel: str, error_string: str):
+    if err != 0:
+        msg = getattr(lib, error_string)(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+
+
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gru_recurrence(
@@ -80,10 +183,8 @@ def gru_recurrence(
     reverse: bool = False,
 ):
     """The GRU recurrence: plain PyTorch on the CPU, the CUDA kernel on a card."""
-    if x_proj.device.type == "cpu":
+    if not _on_card(x_proj):
         return gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"no GRU recurrence for device {x_proj.device}")
     return _launch(x_proj, h0, wh, bh, reverse)
 
 
@@ -97,17 +198,165 @@ def _launch(x_proj, h0, wh, bh, reverse):
     if rows == 0:
         return out, h_last
     lib = _lib()
-    num_sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream()
         err = lib.trunet_gru_fwd(
             x_proj.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
             out.data_ptr(), h_last.data_ptr(),
-            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, num_sms),
+            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, _num_sms(x_proj.device)),
             stream.cuda_stream,
         )
-    if err != 0:
-        msg = lib.trunet_cuda_error_string(err).decode()
-        raise RuntimeError(f"gru_fwd launch failed: CUDA error {err} ({msg})")
+    _raise_on_error(lib, err, "gru_fwd", "trunet_cuda_error_string")
     launches += 1
     return out, h_last
+
+
+def gru_recurrence_train(
+    x_proj: torch.Tensor,
+    h0: torch.Tensor,
+    wh: torch.Tensor,
+    bh: torch.Tensor,
+    reverse: bool = False,
+):
+    """(outputs, h after the last step walked, saved residuals): plain
+    PyTorch on the CPU, the `gru_fwd_train` kernel on a card."""
+    if not _on_card(x_proj):
+        return gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    global fwd_train_launches
+    _check(x_proj, h0, wh, bh)
+    rows, steps, g = x_proj.shape
+    hidden = g // 3
+    out = torch.empty((rows, steps, hidden), dtype=torch.float32, device=x_proj.device)
+    h_last = torch.empty((rows, hidden), dtype=torch.float32, device=x_proj.device)
+    saved = torch.empty((rows, steps, 4 * hidden), dtype=torch.float32, device=x_proj.device)
+    if rows == 0:
+        return out, h_last, saved
+    lib = _train_lib()
+    with torch.cuda.device(x_proj.device):
+        err = lib.trunet_gru_fwd_train(
+            x_proj.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+            out.data_ptr(), h_last.data_ptr(), saved.data_ptr(),
+            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, _num_sms(x_proj.device)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, "gru_fwd_train", "trunet_gru_train_error_string")
+    fwd_train_launches += 1
+    return out, h_last, saved
+
+
+def gru_recurrence_bwd(
+    g: torch.Tensor,
+    g_hT: torch.Tensor,
+    out: torch.Tensor,
+    saved: torch.Tensor,
+    h0: torch.Tensor,
+    wh: torch.Tensor,
+    reverse: bool = False,
+):
+    """(d_xp, dWh, dbh, dh0) of the recurrence from the gradients g of the
+    outputs and g_hT of the last state: plain PyTorch on the CPU, the
+    `gru_bwd`, `gru_dw_partial` and `gru_dw_sum` kernels on a card."""
+    if not _on_card(out):
+        return gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    d_xp, dh0 = bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    rows, steps, hidden = out.shape
+    if rows == 0 or steps == 0:
+        dwh, dbh = torch.zeros_like(wh), wh.new_zeros(3 * hidden)
+    else:
+        dwh, dbh = dw_sum(dw_partial(out, h0, d_xp, saved, reverse=reverse), hidden)
+    return d_xp, dwh, dbh, dh0
+
+
+def _require_card(t: torch.Tensor, kernel: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on a CUDA device, got a tensor on {t.device}")
+
+
+def bptt(g, g_hT, out, saved, h0, wh, reverse: bool = False):
+    """Kernel `gru_bwd`: (d_xp (rows, T, 3H), dh0 (rows, H)). CUDA tensors only."""
+    global bwd_launches
+    _require_card(out, "gru_bwd")
+    _check_bwd(g, g_hT, out, saved, h0, wh)
+    rows, steps, hidden = out.shape
+    d_xp = torch.empty((rows, steps, 3 * hidden), dtype=torch.float32, device=out.device)
+    dh0 = torch.empty((rows, hidden), dtype=torch.float32, device=out.device)
+    if rows == 0:
+        return d_xp, dh0
+    lib = _train_lib()
+    with torch.cuda.device(out.device):
+        err = lib.trunet_gru_bwd(
+            g.data_ptr(), g_hT.data_ptr(), out.data_ptr(), saved.data_ptr(), h0.data_ptr(),
+            wh.data_ptr(), d_xp.data_ptr(), dh0.data_ptr(),
+            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, _num_sms(out.device)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, "gru_bwd", "trunet_gru_train_error_string")
+    bwd_launches += 1
+    return d_xp, dh0
+
+
+def dw_partial(out, h0, d_xp, saved, reverse: bool = False) -> torch.Tensor:
+    """Kernel `gru_dw_partial`: per-split sums of dWh and dbh over the
+    rows * T row-steps, (splits, H*3H + 3H). CUDA tensors only; rows, T >= 1."""
+    global dw_partial_launches
+    _require_card(out, "gru_dw_partial")
+    rows, steps, hidden = out.shape
+    _check_tensors(out, out=out, h0=h0, d_xp=d_xp, saved=saved)
+    _check_shape("h0", h0, (rows, hidden))
+    _check_shape("d_xp", d_xp, (rows, steps, 3 * hidden))
+    _check_shape("saved", saved, (rows, steps, 4 * hidden))
+    if rows < 1 or steps < 1:
+        raise ValueError(f"gru_dw_partial needs rows, T >= 1, got {rows}, {steps}")
+    splits, per_split = dw_splits(rows * steps, hidden, _num_sms(out.device))
+    part = torch.empty((splits, 3 * hidden * (hidden + 1)), dtype=torch.float32, device=out.device)
+    lib = _train_lib()
+    with torch.cuda.device(out.device):
+        err = lib.trunet_gru_dw_partial(
+            out.data_ptr(), h0.data_ptr(), d_xp.data_ptr(), saved.data_ptr(), part.data_ptr(),
+            rows, steps, hidden, int(reverse), splits, per_split,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, "gru_dw_partial", "trunet_gru_train_error_string")
+    dw_partial_launches += 1
+    return part
+
+
+def dw_sum(part: torch.Tensor, hidden: int):
+    """Kernel `gru_dw_sum`: the partials summed over the splits in split
+    order -> (dWh (H, 3H), dbh (3H,)). CUDA tensors only."""
+    global dw_sum_launches
+    _require_card(part, "gru_dw_sum")
+    size = 3 * hidden * (hidden + 1)
+    _check_tensors(part, part=part)
+    if part.dim() != 2 or part.shape[1] != size or part.shape[0] < 1:
+        raise ValueError(f"part must be (splits, {size}), got {tuple(part.shape)}")
+    dw = torch.empty(size, dtype=torch.float32, device=part.device)
+    lib = _train_lib()
+    with torch.cuda.device(part.device):
+        err = lib.trunet_gru_dw_sum(part.data_ptr(), dw.data_ptr(), part.shape[0], size,
+                                    torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "gru_dw_sum", "trunet_gru_train_error_string")
+    dw_sum_launches += 1
+    return dw[: 3 * hidden * hidden].view(hidden, 3 * hidden), dw[3 * hidden * hidden :]
+
+
+class GRURecurrence(torch.autograd.Function):
+    """The trainable recurrence: (x_proj, h0, wh, bh, reverse) -> (outputs,
+    h after the last step walked). Counterpart of the custom VJP of
+    `tinyrecurrentunet_tpu/ops/pallas_gru_vjp.py` over the recurrence alone.
+    """
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, wh, bh, reverse):
+        out, h_last, saved = gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+        ctx.save_for_backward(out, saved, h0, wh)
+        ctx.reverse = reverse
+        return out, h_last
+
+    @staticmethod
+    def backward(ctx, g_out, g_hT):
+        out, saved, h0, wh = ctx.saved_tensors
+        d_xp, dwh, dbh, dh0 = gru_recurrence_bwd(
+            g_out.contiguous(), g_hT.contiguous(), out, saved, h0, wh, reverse=ctx.reverse
+        )
+        return d_xp, dh0, dwh, dbh, None

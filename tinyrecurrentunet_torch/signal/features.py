@@ -97,3 +97,28 @@ class Featurizer:
         return _istft(
             spec, n_fft=self.config.n_fft, hop_length=self.config.hop_length, length=length
         )
+
+
+class Float32Features:
+    """The featurizer of a float64 reference train step that reads a float32
+    run's own input features: the noisy spectrogram and its features are
+    computed in float32 on `device` and cast up to float64 on the CPU; the
+    network, the head, the iSTFT and the loss then run in float64. The
+    rounding of the features moves float32 gradients of the flagship ten
+    times more than the network's own arithmetic does (PERF.md), so a
+    reference on its own float64 features cannot tell a fault from it.
+    Passed as `make_train_step(cfg, featurizer=...)`."""
+
+    def __init__(self, featurizer: Featurizer, device="cpu"):
+        self.featurizer, self.device = featurizer, device
+
+    def __getattr__(self, name):
+        return getattr(self.featurizer, name)
+
+    def spectrogram(self, audio: torch.Tensor) -> torch.Tensor:
+        spec = self.featurizer.spectrogram(audio.to(self.device, torch.float32))
+        return spec.to("cpu", torch.complex128)
+
+    def features_from_spec(self, spec: torch.Tensor) -> torch.Tensor:
+        feats = self.featurizer.features_from_spec(spec.to(self.device, torch.complex64))
+        return feats.to("cpu", torch.float64)

@@ -11,12 +11,23 @@ Counterpart of `tinyrecurrentunet_tpu/signal/stft.py`:
 
 The transforms are `torch.fft.rfft`/`irfft` (cuFFT on the card); framing is
 `Tensor.unfold` and overlap-add is `F.fold`, both free of atomics.
+
+`hann_window` and `stft_magnitude` serve the MR-STFT loss.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def hann_window(win_length: int, device=None) -> torch.Tensor:
+    """torch.hann_window(periodic=True): 0.5 - 0.5 cos(2 pi n / N), float32,
+    computed in float64 as the JAX package does."""
+    n = np.arange(win_length)
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+    return torch.tensor(window, dtype=torch.float32, device=device)
 
 
 def _pad_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -94,3 +105,22 @@ def istft(
     elif length is not None:
         signal = signal[..., :length]
     return signal
+
+
+def stft_magnitude(
+    x: torch.Tensor,
+    fft_size: int,
+    hop_size: int,
+    win_length: int,
+    window: torch.Tensor | None = None,
+    clamp_min: float = 1e-7,
+) -> torch.Tensor:
+    """Magnitude spectrogram sqrt(clamp(re^2 + im^2, min)) of shape (..., T, F).
+
+    The clamp before the square root keeps the gradient finite at silence.
+    """
+    if window is None:
+        window = hann_window(win_length, device=x.device)
+    spec = stft(x, n_fft=fft_size, hop_length=hop_size, window=window)
+    power = spec.real**2 + spec.imag**2
+    return torch.sqrt(torch.clamp(power, min=clamp_min))

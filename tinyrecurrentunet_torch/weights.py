@@ -1,6 +1,6 @@
-"""Weights: `pretrained.npz` -> the port's `state_dict`.
+"""Weights: `pretrained.npz` <-> the port's `state_dict`.
 
-Counterpart of the loader half of `tinyrecurrentunet_tpu/train/checkpoint.py`.
+Counterpart of the `pretrained.npz` half of `tinyrecurrentunet_tpu/train/checkpoint.py`.
 The npz holds the flax variables flattened to keys such as
 `params/['GRUBlock_1']/['GRU_0']/['wh_fwd']`, the BatchNorm running
 statistics under `batch_stats/…` and the artifact's decode-critical settings
@@ -15,6 +15,10 @@ under `meta/…`. Round-1 artifacts stored params without the `params/` prefix.
 - `tr_kernel` (k, Cin, Cout) -> `tr_weight` (Cin, Cout, k), taps flipped
 - BatchNorm `scale` -> `weight`, `mean`/`var` -> `running_mean`/`running_var`
 - GRU `wi_*`, `wh_*`, `bi_*`, `bh_*` keep their names and layouts.
+
+`variables_from_state_dict` is its exact inverse (a 1-D `weight` is a
+BatchNorm scale, 2-D a Dense kernel, 3-D a conv kernel); the training's
+`save_pretrained_params` writes its result as the npz above.
 """
 
 from __future__ import annotations
@@ -26,7 +30,12 @@ import numpy as np
 import torch
 
 from tinyrecurrentunet_torch.config import Config
-from tinyrecurrentunet_torch.ops.conv import conv_transpose_weight_from_jax, conv_weight_from_jax
+from tinyrecurrentunet_torch.ops.conv import (
+    conv_transpose_weight_from_jax,
+    conv_transpose_weight_to_jax,
+    conv_weight_from_jax,
+    conv_weight_to_jax,
+)
 
 _SECTIONS = ("params", "batch_stats")
 
@@ -115,6 +124,40 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> dict[str, torch.T
         key = ".".join(path[:-1] + (_STAT_NAMES[path[-1]],))
         state[key] = torch.tensor(value)
     return state
+
+
+def _param_to_jax(leaf: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    if leaf == "weight":
+        if value.ndim == 1:
+            return "scale", value
+        return "kernel", value.T if value.ndim == 2 else conv_weight_to_jax(value)
+    if leaf == "depthwise_weight":
+        return "depthwise_kernel", conv_weight_to_jax(value)
+    if leaf == "tr_weight":
+        return "tr_kernel", conv_transpose_weight_to_jax(value)
+    return leaf, value
+
+
+_STAT_LEAVES = {v: k for k, v in _STAT_NAMES.items()}
+
+
+def variables_from_state_dict(state: Mapping[str, torch.Tensor]) -> dict:
+    """state_dict of `models.TRUNet` -> nested flax variables {"params": …,
+    "batch_stats": …} with float32 numpy leaves; the exact inverse of
+    `state_dict_from_variables`."""
+    variables: dict = {s: {} for s in _SECTIONS}
+    for key, tensor in state.items():
+        *path, leaf = key.split(".")
+        value = tensor.detach().cpu().numpy().astype(np.float32)
+        if leaf in _STAT_LEAVES:
+            section, (leaf, value) = "batch_stats", (_STAT_LEAVES[leaf], value)
+        else:
+            section, (leaf, value) = "params", _param_to_jax(leaf, value)
+        node = variables[section]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return variables
 
 
 def load_pretrained(directory: str, cfg: Config | None = None) -> dict[str, torch.Tensor]:
