@@ -6,8 +6,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build every CUDA source of the port (`tinyrecurrentunet_torch/ops/csrc`);
 2. hold the GRU recurrence kernel against its plain PyTorch version on the
    card at the flagship's three launch shapes (FGRU forward and reverse,
-   TGRU) and one large16k shape, and time it beside the plain version, its
-   bound and torch.nn.GRU (cuDNN, a yardstick the port never calls);
+   TGRU), the three of large16k and one ragged shape per path of the kernel
+   (registers, cluster, general), check that each shape ran on the path its
+   name says, and time it beside the plain version, its bound and
+   torch.nn.GRU (cuDNN, a yardstick the port never calls);
 3. drive the serving path: the offline `Denoiser` with config/proc16k.json
    and artifacts/TRUNet-proc/pretrained.npz on a seeded 4 s clip, with the
    launch counts set to 0 just before and read just after; check the output
@@ -58,8 +60,10 @@ KERNEL_ATOL = 1e-4
 # inside this bound (CPU port vs JAX measured 4.2e-5 on a 4 s clip).
 DENOISE_ATOL = 2e-4
 # Weight gradients, kernel vs plain version: sums over rows * T = 257,024
-# row-steps taken in another order (per split, then over the splits), so the
-# error is held relative to the largest entry, max|a - b| / max|b|.
+# row-steps taken in another order (per split, then over the splits) and, at
+# H 64 and 128, as TF32 products with bf16 correction terms on the tensor
+# cores (measured 4e-6 to 9e-6), so the error is held relative to the
+# largest entry, max|a - b| / max|b|.
 DW_RTOL = 1e-4
 # One train step at batch 4 from the same weights and batch, on the card and
 # on the CPU. The float32 gradient of this network is ill-conditioned
@@ -209,10 +213,12 @@ def torch_gru_same_function(x_proj, h0, wh, bh, reverse):
     return call
 
 
-def check_kernel(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
+def check_kernel(name, path, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
+    """Phase 2 at one launch shape, which must run on `path` of gru_fwd."""
     device = torch.device("cuda")
     x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
     out_k, hT_k = cuda_gru.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
+    plan = cuda_gru.last_fwd_plan
     out_p, hT_p = gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
     torch.cuda.synchronize()
     err = max((out_k - out_p).abs().max().item(), (hT_k - hT_p).abs().max().item())
@@ -232,11 +238,14 @@ def check_kernel(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
     bound_ms, bound_by, nbytes, flops = gru_bound(rows, steps, hidden)
     row = {
         "shape": name, "rows": rows, "T": steps, "H": hidden, "reverse": reverse,
+        "path": plan.path, "rows_per_tile": plan.rows_per_tile,
         "max_abs_err": err, "library_max_abs_err": lib_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
     log(f"[kernel] {json.dumps(row)}")
+    if plan.path != path:
+        raise AssertionError(f"gru_fwd {name}: ran on the {plan.path} path, expected {path}")
     if not finite:
         raise AssertionError(f"gru_fwd {name}: non-finite output")
     if err > KERNEL_ATOL:
@@ -288,6 +297,7 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
     d_xp, dh0 = cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
     p_dxp, p_dwh, p_dbh, p_dh0 = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
     part = cuda_gru.dw_partial(out, h0, p_dxp, saved, reverse=reverse)
+    dw_plan = cuda_gru.last_dw_plan
     dwh, dbh = cuda_gru.dw_sum(part, hidden)
     dw_sum_want = part.sum(dim=0)
     torch.cuda.synchronize()
@@ -342,8 +352,13 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
         }
         if kernel == "gru_fwd_train":
             row["library_max_abs_err"] = lib_err
+        if kernel == "gru_dw_partial":
+            row["path"] = "tensor_cores" if dw_plan[0] else "simt"
+            row["splits"], row["steps_per_split"] = dw_plan[1:]
         log(f"[train-kernel] {json.dumps(row)}")
         rows_out.append(row)
+    if not dw_plan[0]:
+        raise AssertionError(f"gru_dw_partial {name}: ran as the SIMT product, expected the tensor cores")
     if not finite:
         raise AssertionError(f"training kernels {name}: non-finite output")
     for kernel in ("gru_fwd_train", "gru_bwd"):
@@ -553,16 +568,27 @@ def main() -> int:
     frames = bucket // cfg.featurizer.hop_length + 1
     fb = TRUNet(cfg.network, device="meta").bottleneck_freqs(cfg.featurizer.num_freqs)
     net = cfg.network
+    large_fb = TRUNet(large.network, device="meta").bottleneck_freqs(large.featurizer.num_freqs)
     shapes = [
-        ("fgru_fwd", frames, fb, net.fgru_hidden, False),
-        ("fgru_bwd", frames, fb, net.fgru_hidden, True),
-        ("tgru", fb, frames, net.tgru_hidden, False),
-        ("large16k_tgru", fb, frames, large.network.tgru_hidden, False),
+        # name, path of gru_fwd, rows, T, H, reverse
+        ("fgru_fwd", "registers", frames, fb, net.fgru_hidden, False),
+        ("fgru_bwd", "registers", frames, fb, net.fgru_hidden, True),
+        ("tgru", "registers", fb, frames, net.tgru_hidden, False),
+        ("large16k_fgru_fwd", "cluster", frames, large_fb, large.network.fgru_hidden, False),
+        ("large16k_fgru_bwd", "cluster", frames, large_fb, large.network.fgru_hidden, True),
+        ("large16k_tgru", "cluster", large_fb, frames, large.network.tgru_hidden, False),
+        # rows not a multiple of the row tile, T odd: one per path
+        ("ragged_registers", "registers", 133, 7, net.tgru_hidden, True),
+        ("ragged_cluster", "cluster", 133, 5, large.network.fgru_hidden, False),
+        ("ragged_general", "general", 301, 9, 40, True),
     ]
     rows = [
-        check_kernel(name, r, t, h, rev, seed, cuda_gru, gru_ops)
-        for seed, (name, r, t, h, rev) in enumerate(shapes)
+        check_kernel(name, path, r, t, h, rev, seed, cuda_gru, gru_ops)
+        for seed, (name, path, r, t, h, rev) in enumerate(shapes)
     ]
+    for row in rows[6:]:
+        if row["rows"] % row["rows_per_tile"] == 0 or row["T"] % 2 == 0:
+            raise AssertionError(f"{row['shape']} is not ragged: {row}")
     main_rows = rows[:3]  # the three launches of one flagship denoise call
 
     # 3. the serving path

@@ -9,7 +9,9 @@ Tolerances, kernel against the plain PyTorch version on the same card:
   a few hundred steps (chip_smoke.py measured <= 3e-7 for gru_fwd);
 - 1e-4 relative to the largest entry, max|a - b| / max|b|, on dWh and dbh:
   sums over rows * T row-steps taken in another order (per split, then over
-  the splits) than the plain version's step-by-step sum.
+  the splits) than the plain version's step-by-step sum, and at H 64 and 128
+  on the tensor cores as TF32 products with bf16 corrections (chip_smoke.py
+  measured <= 1e-5).
 """
 
 import os
@@ -49,20 +51,41 @@ def _inputs(rows, steps, hidden, seed, device):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("rows,steps,hidden", [
-    (556, 16, 64),   # flagship FGRU, 4 s clip
-    (16, 300, 128),  # flagship TGRU
-    (7, 9, 40),      # H not a multiple of 32, ragged row tile
-    (133, 5, 256),   # Wh read from global memory (large16k FGRU width)
-    (3, 1, 8),
+@pytest.mark.parametrize("rows,steps,hidden,path", [
+    (556, 16, 64, "registers"),   # flagship FGRU, 4 s clip, both directions
+    (16, 300, 128, "registers"),  # flagship TGRU
+    (556, 16, 256, "cluster"),    # large16k FGRU: clusters of 8 blocks
+    (16, 300, 512, "cluster"),    # large16k TGRU: clusters of 16 blocks
+    (133, 7, 128, "registers"),   # ragged: rows not a multiple of the tile, T odd
+    (133, 5, 256, "cluster"),
+    (19, 3, 512, "cluster"),
+    (301, 9, 40, "general"),      # H not a multiple of 32, ragged row tile
+    (16, 1, 128, "registers"),    # T = 1
+    (16, 1, 512, "cluster"),
+    (1, 9, 64, "registers"),      # rows = 1
+    (1, 9, 256, "cluster"),
+    (3, 1, 8, "general"),
 ])
-def test_kernel_matches_plain_version(card, rows, steps, hidden, reverse):
+def test_kernel_matches_plain_version(card, rows, steps, hidden, path, reverse):
     x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
     before = cuda_gru.launches
     out, h_last = cuda_gru.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
     torch.cuda.synchronize()
     assert cuda_gru.launches == before + 1
+    assert cuda_gru.last_fwd_plan.path == path
     ref_out, ref_h = gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=ATOL)
+    torch.testing.assert_close(h_last, ref_h, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("rows,steps,hidden", [(556, 16, 64), (16, 300, 128), (556, 16, 256), (16, 300, 512)])
+def test_general_kernel_at_the_resident_sizes(card, rows, steps, hidden):
+    """The general kernel still takes the sizes that `fwd_plan` sends elsewhere."""
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
+    plan = cuda_gru.FwdPlan("general", cuda_gru.rows_per_block(rows, hidden, 132))
+    out, h_last = cuda_gru._launch(x_proj, h0, wh, bh, False, plan=plan)
+    torch.cuda.synchronize()
+    ref_out, ref_h = gru_ops.gru_recurrence(x_proj, h0, wh, bh)
     torch.testing.assert_close(out, ref_out, rtol=0, atol=ATOL)
     torch.testing.assert_close(h_last, ref_h, rtol=0, atol=ATOL)
 
@@ -84,6 +107,10 @@ def _rel(a, b):
     (7, 9, 40),       # H not a multiple of 32 or 64, ragged row tile
     (133, 5, 256),    # Wh read from global memory
     (3, 1, 8),
+    (1001, 13, 64),   # tensor cores: rows * T not a multiple of the chunk of 32
+    (37, 11, 128),    # the same at H 128, two splits
+    (5, 7, 64),       # rows * T smaller than one split (and than two chunks)
+    (1, 1, 128),
 ])
 def test_training_kernels_match_plain_versions(card, rows, steps, hidden, reverse):
     x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
@@ -105,6 +132,29 @@ def test_training_kernels_match_plain_versions(card, rows, steps, hidden, revers
     after = cuda_gru.launch_counts()
     assert {k: after[k] - counts[k] for k in after} == {
         "gru_fwd": 0, "gru_fwd_train": 1, "gru_bwd": 1, "gru_dw_partial": 1, "gru_dw_sum": 1}
+
+
+@pytest.mark.parametrize("rows,steps,hidden", [(1001, 13, 64), (37, 11, 128)])
+def test_weight_gradient_kernels_agree(card, rows, steps, hidden):
+    """The tensor-core reduction against the float32 SIMT one on the
+    same inputs, and on tensors that are not aligned to 16 bytes the wrapper
+    takes the SIMT kernel."""
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, 7, card)
+    g, g_hT = _grads(rows, steps, hidden, 7, card)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh)
+    d_xp = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh)[0]
+    results = {}
+    for tensor_cores in (True, False):
+        plan = (tensor_cores, *cuda_gru.dw_splits(rows * steps, hidden, 132, tensor_cores))
+        results[tensor_cores] = cuda_gru.dw_sum(cuda_gru._launch_dw(out, h0, d_xp, saved, False, plan=plan), hidden)
+    for a, b in zip(results[True], results[False]):
+        assert _rel(a, b) <= 1e-4
+    flat = torch.empty(out.numel() + 1, device=card)
+    shifted = flat[1:].view_as(out).copy_(out)  # 4 bytes off a 16-byte boundary
+    cuda_gru.dw_partial(shifted, h0, d_xp, saved)
+    assert cuda_gru.last_dw_plan[0] is False
+    cuda_gru.dw_partial(out, h0, d_xp, saved)
+    assert cuda_gru.last_dw_plan[0] is True
 
 
 def test_weight_gradient_is_deterministic(card):

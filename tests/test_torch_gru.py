@@ -1,5 +1,6 @@
 """The port's GRU against the JAX scan and the Pallas kernel (interpret
-mode), and the CUDA wrapper's dispatch and checks.
+mode), and the CUDA wrapper's dispatch (which path of `gru_fwd` a shape
+takes), and checks.
 
 Tolerance: 1e-5 absolute on outputs and final state. Both sides are float32
 with the same gate math; only the order of the length-H dot products
@@ -129,6 +130,39 @@ def test_kernel_rejects_hidden_above_one_block():
 ])
 def test_rows_per_block(rows, hidden, expect):
     assert cuda_gru.rows_per_block(rows, hidden, 132) == expect
+
+
+@pytest.mark.parametrize("rows,steps,hidden,expect", [
+    (556, 16, 64, ("registers", 2)),    # flagship FGRU, 4 s clip: 278 blocks, four an SM
+    (16, 556, 128, ("registers", 1)),   # flagship TGRU: one block per row
+    (556, 16, 256, ("cluster", 8)),     # large16k FGRU: 70 clusters of 8 blocks
+    (16, 556, 512, ("cluster", 2)),     # large16k TGRU: 8 clusters of 16 blocks, one wave
+    (17, 556, 512, ("cluster", 3)),
+    (16, 100, 256, ("cluster", 1)),
+    (133, 7, 128, ("registers", 2)),
+    (5000, 3, 128, ("registers", 4)),   # the most rows per tile the kernel is built for
+    (5000, 3, 64, ("registers", 8)),
+    (1, 0, 64, ("registers", 1)),
+    (7, 9, 40, ("general", 1)),         # any other H: the general kernel with rows_per_block
+    (301, 9, 40, ("general", 4)),
+    (16, 556, 1024, ("general", 1)),
+])
+def test_fwd_plan(rows, steps, hidden, expect):
+    plan = cuda_gru.fwd_plan(rows, steps, hidden, 132)
+    assert plan == expect
+    assert plan.path == expect[0] and plan.rows_per_tile == expect[1]
+
+
+@pytest.mark.parametrize("rows,hidden,max_clusters,expect", [
+    (16, 512, 8, 2),    # the card holds all 8 clusters of 16 blocks at once
+    (16, 512, 6, 3),    # it holds 6: three rows a tile keep the call in one wave
+    (16, 512, 1, 4),    # more waves than tiles built for: the most rows per tile
+    (16, 256, 14, 2),
+    (556, 256, 16, 8),
+    (16, 128, 5, 1),    # no clusters at H 128: the count is not read
+])
+def test_fwd_plan_follows_the_clusters_the_card_holds(rows, hidden, max_clusters, expect):
+    assert cuda_gru.fwd_plan(rows, 556, hidden, 132, max_clusters).rows_per_tile == expect
 
 
 def test_build_names_every_source_and_hashes_its_content(tmp_path, monkeypatch):

@@ -160,12 +160,26 @@ def test_bwd_argument_checks(index, bad, err):
 
 
 @pytest.mark.parametrize("steps,hidden,expect", [
-    (16064 * 16, 64, (88, 2921)),   # flagship FGRU at batch 64: 3 tiles x 88 splits
-    (1024 * 251, 128, (22, 11683)),  # flagship TGRU at batch 64: 12 tiles x 22 splits
-    (100, 8, (1, 100)),              # too few row-steps to split
-    (1000, 64, (4, 250)),
+    # tensor cores (H 64, 128): two blocks an SM over the 192-column slabs, whole chunks
+    (16064 * 16, 64, (260, 992)),    # flagship FGRU at batch 64: 1 slab x 260 splits
+    (1024 * 251, 128, (132, 1952)),  # flagship TGRU at batch 64: 2 slabs x 132 splits
+    (1000, 64, (4, 256)),
+    (100, 64, (1, 128)),             # too few row-steps to split
+    (63, 128, (1, 64)),
+    # the SIMT kernel (any other H): 64 x 64 tiles
+    (100, 8, (1, 100)),
+    (133 * 5, 256, (3, 222)),
 ])
 def test_dw_splits(steps, hidden, expect):
     splits, per_split = cuda_gru.dw_splits(steps, hidden, 132)
     assert (splits, per_split) == expect
     assert splits * per_split >= steps > (splits - 1) * per_split
+
+
+@pytest.mark.parametrize("steps,hidden,expect", [
+    (16064 * 16, 64, (88, 2921)),    # 3 tiles x 88 splits
+    (1024 * 251, 128, (22, 11683)),  # 12 tiles x 22 splits
+])
+def test_dw_splits_of_the_simt_kernel_at_the_tensor_core_sizes(steps, hidden, expect):
+    """Tensors that are not 16-byte aligned take the SIMT kernel at H 64 and 128."""
+    assert cuda_gru.dw_splits(steps, hidden, 132, tensor_cores=False) == expect

@@ -15,27 +15,68 @@
 // their input positions and hT is the carry after the last step walked. The
 // loop over time runs inside the block, so there is no padding of T.
 //
-// Design. One block owns RPT rows and walks all T steps; thread j owns hidden
-// unit j (blockDim.x == H) of each of its rows and computes the three gate
-// columns j, H+j, 2H+j of h @ Wh. The block's h lives in shared memory,
-// double-buffered, with one __syncthreads() per step. Wh is copied once into
-// dynamic shared memory when it fits (48 KB at H=64, 192 KB at H=128, the
-// flagship's FGRU and TGRU); otherwise (H=256/512 of large16k: 786 KB, 3 MB)
-// it is read from global memory, where it stays in the 50 MB L2. The next
-// step's inputs are loaded before the current step's product, so their
-// latency hides behind it.
-//
 // What bounds it on this card: not bytes or FLOPs (a flagship call moves a
 // few MB and does ~0.1 GFLOP) but the serial chain of T dependent small
-// products, one step's h @ Wh needing the previous step's h. Each step costs
-// a block H dependent shared-memory FMA rounds plus a barrier. The TGRU
-// (16 rows, H=128) runs 16 blocks of 128 threads on 16 of the 132 SMs; the
-// FGRU (one row per frame, 556 for a 4 s clip, T=16) runs 70 blocks of 64
-// threads, 8 rows each.
-// Making it fast is later work: Wh slices resident in registers, the step
-// product on tensor cores (mma.sync / wgmma), the columns of one row tile
-// split over several blocks of a cluster sharing h through DSMEM.
+// products, one step's h @ Wh needing the previous step's h. The only lever
+// is the latency of one step, and Wh never changes during a call.
+//
+// Design: two kernels, chosen by the wrapper's `fwd_plan(rows, T, H, SMs)`.
+//
+// gru_fwd_resident_kernel<H, CS, C, KS, R> (paths "registers", CS = 1, and
+// "cluster", CS = 8 or 16; H = 64, 128, 256, 512). Wh stays in registers for
+// the whole call. A row tile of R rows belongs to CS blocks; block `rank`
+// owns the hidden units [rank * H/CS, (rank + 1) * H/CS) and their three gate
+// columns. A group of KS neighbouring lanes owns C gate columns: lane ks
+// holds the words of those columns for the k with (k / 4) % KS == ks,
+// C * H / KS registers (64 at H = 64, else 128), loaded once. Per step a lane
+// reads h as float4 words from shared memory (the lanes of a group read
+// neighbouring words, the groups of a warp the same ones) and feeds each word
+// to C FMA chains. A warp-wide 16-byte shared load returns 512 bytes at 128
+// bytes a cycle whatever is broadcast, so with one column per lane group the
+// loads, not the FMAs, bound the step; C columns per group cut them C times.
+// The KS partial sums of a column meet by __shfl_xor_sync: butterflies down
+// to C lanes, then a transposing reduction (C - 1 shuffles) that leaves one
+// finished column with each of the first C lanes. That lane leaves its
+// pre-activation (with bh) and its x_proj word in shared memory; after one
+// __syncthreads() the gates of the block's units are applied, once each, and
+// the new h is stored into the h buffer of every block of the cluster
+// (distributed shared memory, cluster.map_shared_rank; a warp stores 32
+// consecutive words per destination). h is double-buffered, so one
+// cluster.sync() (CS = 1: __syncthreads()) a step is enough: a block that
+// runs ahead writes the buffer its peers have finished reading. The next
+// step's x_proj words are loaded before the product. The gates run on the
+// special-function unit (__expf, __fdividef; ~1e-7 absolute): they are a
+// third of the serial chain of one step.
+//   H = 64: one block of 192 threads per row tile (C 2, KS 2).
+//   H = 128: one block of 384 threads (C 4, KS 4).
+//   H = 256: clusters of 8 blocks of 192 threads, 32 units each (C 4, KS 8).
+//   H = 512: clusters of 16 blocks (non-portable size) of 384 threads, 32
+//   units each (C 4, KS 16); a block's slice of the 3 MB Wh is 48k words.
+// A cluster that cannot be scheduled is an error of the launch
+// (cudaOccupancyMaxActiveClusters), never a change of path.
+//
+// gru_fwd_kernel<RPT, WH_SMEM> (path "general", any 1 <= H <= 1024). One
+// block owns RPT rows, thread j owns hidden unit j and computes the three
+// gate columns j, H+j, 2H+j out of Wh in shared memory when it fits (H <=
+// 128) and out of global memory (L2) otherwise; h double-buffered, one
+// barrier a step.
+//
+// Registers a thread and static shared memory a block, as `nvcc -Xptxas -v`
+// reports them for sm_90a (CUDA 12.8), by rows per tile:
+//   H = 64  (192 threads): 94 / 94 / 129 / 163 registers at 1 / 2 / 4 / 8
+//           rows; 2 / 4 / 8 / 16 KB.
+//   H = 128 (384 threads): 166 / 168 / 168 at 1 / 2 / 4 rows (4 bytes spilled
+//           at 4); 4 / 8 / 16 KB.
+//   H = 256 (192 threads): 164 / 168 / 197 / 255 at 1 / 2 / 4 / 8 rows, no
+//           spill; 2.8 / 5.6 / 11 / 22 KB.
+//   H = 512 (384 threads): 165 / 168 / 168 / 168 at 1 / 2 / 3 / 4 rows (8
+//           bytes spilled at 4); 4.9 / 9.7 / 14.6 / 19.5 KB.
+//   general kernel: 32-168 registers; dynamic shared memory 8 * RPT * H bytes
+//           plus 12 * H * H for Wh when that fits (H <= 128).
+// The Wh slice of a thread (64 words at H = 64, else 128) stays in registers
+// in every instantiation.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -43,6 +84,16 @@
 namespace {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// The gates on the special-function unit (ex2.approx, rcp.approx): ~1e-7
+// absolute, a third of the dependent instructions of expf and tanhf.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  const float e = __expf(-2.0f * fabsf(x));
+  return copysignf(__fdividef(1.0f - e, 1.0f + e), x);
+}
 
 template <int RPT, bool WH_SMEM>
 __global__ void gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
@@ -147,6 +198,192 @@ __global__ void gru_fwd_kernel(const float* __restrict__ xp, const float* __rest
   }
 }
 
+// ---------------------------------------------------- Wh resident in registers
+
+namespace cg = cooperative_groups;
+
+template <int H, int CS, int C, int KS, int R>
+__global__ void __launch_bounds__(3 * (H / CS) / C * KS)
+    gru_fwd_resident_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
+                            const float* __restrict__ wh, const float* __restrict__ bh,
+                            float* __restrict__ out, float* __restrict__ h_last, int rows,
+                            int T, int reverse) {
+  constexpr int HS = H / CS;          // hidden units of this block
+  constexpr int LC = 3 * HS;          // its gate columns
+  constexpr int NT = LC / C * KS;     // threads: KS lanes for every C columns
+  constexpr int G = 3 * H;
+  constexpr int KI = H / (4 * KS);    // float4 words of h a lane reads per row
+  constexpr int NP = R * C >= 8 ? 1 : 2;  // independent FMA chains per row and column
+  constexpr int GATES = R * HS;            // gate evaluations a step
+  constexpr int GE = (GATES + NT - 1) / NT;
+  static_assert(H % (4 * KS) == 0 && H % CS == 0 && HS % C == 0 && KS % C == 0 &&
+                    32 % KS == 0 && NT % 32 == 0, "shape");
+
+  __shared__ __align__(16) float hbuf[2 * R * H];  // h of the tile, double-buffered
+  __shared__ float gsm[R * LC];                    // h @ Wh + bh, this block's columns
+  __shared__ float xsm[R * LC];                    // x_proj of the step, the same columns
+
+  const int tid = threadIdx.x;
+  const int ks = tid % KS;
+  const int lc0 = (tid / KS) * C;  // first local column of the lane group
+  int rank = 0;
+  if constexpr (CS > 1) rank = (int)cg::this_cluster().block_rank();
+  const int row0 = (blockIdx.x / CS) * R;
+  // local column lc = gate * HS + unit  <->  column gate * H + rank * HS + unit of Wh
+  const int gcol0 = (lc0 / HS) * H + rank * HS + lc0 % HS;
+
+  // w[c][4 i + q] = Wh[(i * KS + ks) * 4 + q, gcol0 + c]
+  float w[C][4 * KI];
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* src = wh + (size_t)((i * KS + ks) * 4 + q) * G + gcol0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) w[c][4 * i + q] = src[c];
+    }
+  }
+  // after the reduction lane ks < C holds column lc0 + ks
+  const bool owner = ks < C;
+  const int lc = lc0 + ks % C;
+  const int gcol = gcol0 + ks % C;
+  const float bias = bh[gcol];
+
+  for (int e = tid; e < R * H; e += NT) {
+    const int r = e / H;
+    hbuf[e] = row0 + r < rows ? h0[(size_t)(row0 + r) * H + (e - r * H)] : 0.0f;
+  }
+
+  // x_proj words of the first step walked
+  float x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    x[r] = 0.0f;
+    if (owner && row0 + r < rows && T > 0)
+      x[r] = xp[((size_t)(row0 + r) * T + (reverse ? T - 1 : 0)) * G + gcol];
+  }
+  if constexpr (CS > 1) cg::this_cluster().sync(); else __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const float* hc = hbuf + (s & 1) * R * H;
+    const int nxt = ((s + 1) & 1) * R * H;
+
+    // prefetch the next step's inputs
+    float nx[R];
+    const int tn = reverse ? t - 1 : t + 1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      nx[r] = 0.0f;
+      if (owner && row0 + r < rows && s + 1 < T)
+        nx[r] = xp[((size_t)(row0 + r) * T + tn) * G + gcol];
+    }
+
+    float acc[R][C];
+    {
+      float part[R][C][NP];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) part[r][c][p] = 0.0f;
+        }
+      }
+      const float4* h4 = reinterpret_cast<const float4*>(hc);
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 hv = h4[r * (H / 4) + i * KS + ks];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            part[r][c][0] = fmaf(hv.x, w[c][4 * i + 0], part[r][c][0]);
+            part[r][c][NP - 1] = fmaf(hv.y, w[c][4 * i + 1], part[r][c][NP - 1]);
+            part[r][c][0] = fmaf(hv.z, w[c][4 * i + 2], part[r][c][0]);
+            part[r][c][NP - 1] = fmaf(hv.w, w[c][4 * i + 3], part[r][c][NP - 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          acc[r][c] = part[r][c][0];
+          if constexpr (NP == 2) acc[r][c] += part[r][c][NP - 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // sum over the KS lanes: plain butterflies down to C lanes, then a
+      // transposing reduction that leaves column lc0 + ks % C with lane ks
+#pragma unroll
+      for (int o = KS / 2; o >= C; o >>= 1) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], o);
+      }
+#pragma unroll
+      for (int o = C / 2; o >= 1; o >>= 1) {
+        const bool up = (ks & o) != 0;
+#pragma unroll
+        for (int j = 0; j < o; ++j) {
+          const float send = up ? acc[r][j] : acc[r][j + o];
+          const float keep = up ? acc[r][j + o] : acc[r][j];
+          acc[r][j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+      }
+      if (owner) {
+        gsm[r * LC + lc] = acc[r][0] + bias;
+        xsm[r * LC + lc] = x[r];
+      }
+      x[r] = nx[r];
+    }
+    __syncthreads();
+
+    // gates of this block's units; the new h goes to every block of the cluster
+#pragma unroll
+    for (int it = 0; it < GE; ++it) {
+      const int e = tid + it * NT;
+      if (e < GATES) {
+        const int r = e / HS;
+        const int u = e - r * HS;
+        const float* g = gsm + r * LC;
+        const float* xs = xsm + r * LC;
+        const float rg = sigmoid_fast(xs[u] + g[u]);
+        const float zg = sigmoid_fast(xs[HS + u] + g[HS + u]);
+        const float ng = tanh_fast(xs[2 * HS + u] + rg * g[2 * HS + u]);
+        const int j = rank * HS + u;
+        const float h = (1.0f - zg) * ng + zg * hc[r * H + j];
+        if constexpr (CS > 1) {
+#pragma unroll
+          for (int dst = 0; dst < CS; ++dst)
+            cg::this_cluster().map_shared_rank(hbuf, dst)[nxt + r * H + j] = h;
+        } else {
+          hbuf[nxt + r * H + j] = h;
+        }
+        if (row0 + r < rows) out[((size_t)(row0 + r) * T + t) * H + j] = h;
+      }
+    }
+    if constexpr (CS > 1) cg::this_cluster().sync(); else __syncthreads();
+  }
+
+  const float* hl = hbuf + (T & 1) * R * H;
+  for (int e = tid; e < R * HS; e += NT) {
+    const int r = e / HS;
+    const int j = rank * HS + (e - r * HS);
+    if (row0 + r < rows) h_last[(size_t)(row0 + r) * H + j] = hl[r * H + j];
+  }
+}
+
+// ------------------------------------------------------------ launching
+
+struct Args {
+  const float *xp, *h0, *wh, *bh;
+  float *out, *h_last;
+  int rows, T, H, reverse;
+};
+
 size_t smem_bytes(int H, int rpt, bool wh_smem) {
   return (size_t)(2 * rpt * H + (wh_smem ? 3 * H * H : 0)) * sizeof(float);
 }
@@ -161,61 +398,139 @@ int max_optin_smem() {
 }
 
 template <int RPT, bool WH_SMEM>
-cudaError_t launch(const float* xp, const float* h0, const float* wh, const float* bh,
-                   float* out, float* h_last, int rows, int T, int H, int reverse,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, RPT, WH_SMEM);
+cudaError_t launch_general(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.H, RPT, WH_SMEM);
   auto kernel = gru_fwd_kernel<RPT, WH_SMEM>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((rows + RPT - 1) / RPT);
-  kernel<<<grid, H, smem, stream>>>(xp, h0, wh, bh, out, h_last, rows, T, H, reverse);
+  const dim3 grid((a.rows + RPT - 1) / RPT);
+  kernel<<<grid, a.H, smem, stream>>>(a.xp, a.h0, a.wh, a.bh, a.out, a.h_last, a.rows, a.T,
+                                      a.H, a.reverse);
   return cudaGetLastError();
 }
 
 template <bool WH_SMEM>
-cudaError_t dispatch(int rpt, const float* xp, const float* h0, const float* wh,
-                     const float* bh, float* out, float* h_last, int rows, int T, int H,
-                     int reverse, cudaStream_t stream) {
+cudaError_t dispatch_general(int rpt, const Args& a, cudaStream_t stream) {
   switch (rpt) {
-    case 1: return launch<1, WH_SMEM>(xp, h0, wh, bh, out, h_last, rows, T, H, reverse, stream);
-    case 2: return launch<2, WH_SMEM>(xp, h0, wh, bh, out, h_last, rows, T, H, reverse, stream);
-    case 4: return launch<4, WH_SMEM>(xp, h0, wh, bh, out, h_last, rows, T, H, reverse, stream);
-    case 8: return launch<8, WH_SMEM>(xp, h0, wh, bh, out, h_last, rows, T, H, reverse, stream);
+    case 1: return launch_general<1, WH_SMEM>(a, stream);
+    case 2: return launch_general<2, WH_SMEM>(a, stream);
+    case 4: return launch_general<4, WH_SMEM>(a, stream);
+    case 8: return launch_general<8, WH_SMEM>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// One cluster of CS blocks per tile of R rows (CS = 1: plain blocks). A
+// cluster that the card cannot hold is an error, not a change of path.
+// The launch of the resident kernel over `tiles` row tiles: one cluster of
+// CS blocks per tile (CS = 1: plain blocks). `attr` must outlive `cfg`.
+template <int H, int CS, int C, int KS, int R>
+cudaError_t resident_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int tiles,
+                            cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)tiles * CS);
+  cfg.blockDim = dim3(3 * (H / CS) / C * KS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  if (CS > 1) {
+    if (CS > 8) {
+      cudaError_t err = cudaFuncSetAttribute(gru_fwd_resident_kernel<H, CS, C, KS, R>,
+                                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cudaSuccess;
+}
+
+// Clusters of the kernel the card holds at once (CS = 1: not asked).
+template <int H, int CS, int C, int KS, int R>
+cudaError_t resident_max_clusters(int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = resident_config<H, CS, C, KS, R>(cfg, attr, 64, nullptr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, gru_fwd_resident_kernel<H, CS, C, KS, R>, &cfg);
+}
+
+// A cluster that the card cannot hold is an error, not a change of path.
+template <int H, int CS, int C, int KS, int R>
+cudaError_t launch_resident(const Args& a, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = resident_config<H, CS, C, KS, R>(cfg, attr, (a.rows + R - 1) / R, stream);
+  if (err != cudaSuccess) return err;
+  if (CS > 1) {
+    int clusters = 0;
+    err = resident_max_clusters<H, CS, C, KS, R>(&clusters);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  }
+  err = cudaLaunchKernelEx(&cfg, gru_fwd_resident_kernel<H, CS, C, KS, R>, a.xp, a.h0, a.wh,
+                           a.bh, a.out, a.h_last, a.rows, a.T, a.reverse);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+#define TRUNET_RESIDENT(HH, CS, C, KS, RR) \
+  if (a.H == HH && rows_per_tile == RR) return launch_resident<HH, CS, C, KS, RR>(a, stream);
+
+// The instantiations of the resident kernel, (H, blocks of a cluster, columns
+// and lanes of a lane group, rows per tile); any other is refused. Per H the
+// (columns, lanes) are the fastest of those measured on an H100
+// (scripts/torch_gru_kernel_profile.py, PERF.md).
+cudaError_t dispatch_resident(int rows_per_tile, const Args& a, cudaStream_t stream) {
+  TRUNET_RESIDENT(64, 1, 2, 2, 1) TRUNET_RESIDENT(64, 1, 2, 2, 2)
+  TRUNET_RESIDENT(64, 1, 2, 2, 4) TRUNET_RESIDENT(64, 1, 2, 2, 8)
+  TRUNET_RESIDENT(128, 1, 4, 4, 1) TRUNET_RESIDENT(128, 1, 4, 4, 2)
+  TRUNET_RESIDENT(128, 1, 4, 4, 4)
+  TRUNET_RESIDENT(256, 8, 4, 8, 1) TRUNET_RESIDENT(256, 8, 4, 8, 2)
+  TRUNET_RESIDENT(256, 8, 4, 8, 4) TRUNET_RESIDENT(256, 8, 4, 8, 8)
+  TRUNET_RESIDENT(512, 16, 4, 16, 1) TRUNET_RESIDENT(512, 16, 4, 16, 2)
+  TRUNET_RESIDENT(512, 16, 4, 16, 3) TRUNET_RESIDENT(512, 16, 4, 16, 4)
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when Wh goes to shared memory for this H and rows_per_block, else 0.
-int trunet_gru_fwd_wh_in_smem(int H, int rows_per_block) {
-  return smem_bytes(H, rows_per_block, true) <= (size_t)max_optin_smem() ? 1 : 0;
-}
-
 // Launches the recurrence on `stream`; returns the cudaError_t of the launch.
-// rows_per_block is 1, 2, 4 or 8; 1 <= H <= 1024; rows >= 1.
+// resident 0: the general kernel, rows_per_block 1, 2, 4 or 8, 1 <= H <= 1024.
+// resident 1: the resident kernel (H = 256 and 512 as clusters), for the
+// (H, rows_per_block) that dispatch_resident lists.
 int trunet_gru_fwd(const void* x_proj, const void* h0, const void* wh, const void* bh,
                    void* out, void* h_last, int rows, int T, int H, int reverse,
-                   int rows_per_block, void* stream) {
+                   int rows_per_block, int resident, void* stream) {
   if (rows < 1 || T < 0 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
-  const float* xp = static_cast<const float*>(x_proj);
-  const float* h0f = static_cast<const float*>(h0);
-  const float* whf = static_cast<const float*>(wh);
-  const float* bhf = static_cast<const float*>(bh);
-  float* outf = static_cast<float*>(out);
-  float* hlf = static_cast<float*>(h_last);
+  const Args a{static_cast<const float*>(x_proj), static_cast<const float*>(h0),
+               static_cast<const float*>(wh),     static_cast<const float*>(bh),
+               static_cast<float*>(out),          static_cast<float*>(h_last),
+               rows, T, H, reverse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (trunet_gru_fwd_wh_in_smem(H, rows_per_block))
-    return (int)dispatch<true>(rows_per_block, xp, h0f, whf, bhf, outf, hlf, rows, T, H,
-                               reverse, s);
-  return (int)dispatch<false>(rows_per_block, xp, h0f, whf, bhf, outf, hlf, rows, T, H,
-                              reverse, s);
+  if (resident == 1) return (int)dispatch_resident(rows_per_block, a, s);
+  if (resident != 0) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(H, rows_per_block, true) <= (size_t)max_optin_smem())
+    return (int)dispatch_general<true>(rows_per_block, a, s);
+  return (int)dispatch_general<false>(rows_per_block, a, s);
+}
+
+// Clusters of the resident kernel that the current device holds at once, at
+// the most rows per tile built for H (256 or 512); -cudaError_t on failure.
+int trunet_gru_fwd_max_clusters(int H) {
+  int clusters = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (H == 256) err = resident_max_clusters<256, 8, 4, 8, 8>(&clusters);
+  if (H == 512) err = resident_max_clusters<512, 16, 4, 16, 4>(&clusters);
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 const char* trunet_cuda_error_string(int err) {

@@ -9,11 +9,10 @@
 //   `_bwd_kernel` -> gru_bwd_kernel (d_xp, the dh carry, dh0)
 //                    + gru_dw_partial_kernel + gru_dw_sum_kernel (dWh, dbh)
 // The TPU kernel sums dWh and dbh over rows and time in VMEM scratch as its
-// sequential grid walks. Blocks on the card run in parallel, and 3H
-// accumulators per thread (384 at H=128) would not fit in registers, so the
-// sum is a kernel of its own: per-block partials over a fixed split of the
-// row-steps, then a sum over the splits in a fixed order. The result is
-// deterministic.
+// sequential grid walks. Blocks on the card run in parallel, so the sum is a
+// kernel of its own: per-block partials over a fixed split of the row-steps
+// (on the tensor cores at H = 64 and 128, see the reduction section), then a
+// sum over the splits in a fixed order. The result is deterministic.
 //
 // Math per step (gate order r, z, n as torch.nn.GRU; bh inside r * hn):
 //   hp = h_prev @ Wh + bh;  r = sigmoid(xr + hr);  z = sigmoid(xz + hz)
@@ -36,15 +35,15 @@
 // What bounds it on this card. The two recurrences are a serial chain of T
 // dependent steps, each an H- or 3H-long dot product per thread out of
 // shared memory and one barrier; bytes and FLOPs are far from their bounds
-// (PERF.md). Design as gru_fwd.cu: one block owns 1-8 rows and walks all T
-// steps, thread j owns hidden unit j; Wh sits in dynamic shared memory when
+// (PERF.md). Design as the general kernel of gru_fwd.cu: one block owns 1-8
+// rows and walks all T steps, thread j owns hidden unit j; Wh sits in dynamic shared memory when
 // it fits (48 KB at H=64, 192 KB at H=128), the backward holds it
 // transposed so that thread j reads column j without bank conflicts. The
 // next step's inputs are loaded before the current step's product. The
-// weight-gradient reduction is a float32 SIMT product of (H, N) by (N, 3H),
-// N = rows * T, bound by FLOPs at the flagship's shapes.
-// Making them fast is later work: the step product on tensor cores, the
-// BPTT of a row tile split over a cluster, the reduction with wgmma.
+// weight-gradient reduction is a product of (H, N) by (N, 3H), N = rows * T,
+// described at its section below.
+// Making the recurrences fast is later work: Wh resident in registers and the
+// BPTT of a row tile split over a cluster, as gru_fwd.cu does for inference.
 
 #include <cuda_runtime.h>
 
@@ -277,14 +276,68 @@ __global__ void gru_bwd_kernel(const float* __restrict__ g, const float* __restr
 }
 
 // ------------------------------------------------- weight-gradient reduction
+//
+// Replaces the dWh / dbh accumulation of the TPU kernel `_bwd_kernel`
+// (tinyrecurrentunet_tpu/ops/pallas_gru_vjp.py). Per split of the N = rows * T
+// row-steps:
+//   part[split, k * 3H + c] = sum_n h_prev[n, k] * d_hp[n, c]
+//   part[split, H * 3H + c] = sum_n d_hp[n, c]          (dbh)
+// with h_prev[n] the output of the step walked before n or h0, and d_hp the
+// staged d_xp with its n third multiplied by the saved r. Nothing shifted or
+// multiplied is written to device memory first.
+//
+// What bounds it on this card. At the flagship's training shapes it is 6.3
+// GFLOP over 329 MB (H = 64: bytes and float32 operations both ask ~0.1 ms)
+// and 25 GFLOP over 660 MB (H = 128: 0.38 ms of float32 FMAs, 0.2 ms of
+// bytes). A float32 SIMT product cannot reach the memory time at H = 128 and
+// barely at H = 64, so the product runs on the tensor cores.
+//
+// gru_dw_mma_kernel<H, CH, STAGES> (H = 64, 128; 16-byte aligned tensors).
+// - One block of 8 warps owns all H rows of dWh and a slab of 192 columns
+//   (all of 3H at H = 64, half at H = 128) for its split, so d_xp and r are
+//   read from device memory once and h_prev once per slab. grid (3H / 192,
+//   splits); an SM holds two blocks at H = 64 (88 KB of shared memory each)
+//   and one at H = 128 (181 KB, 96 accumulators a thread).
+// - A ring of staged chunks of 32 row-steps (2 at H = 64, 3 at H = 128),
+//   filled by the TMA unit: one bulk copy (cp.async.bulk) per staged row of
+//   h_prev, d_xp and r, started by 96 threads right after the barrier that
+//   frees the stage, its bytes counted by the stage's mbarrier, on which
+//   every warp waits before it reads the chunk. One __syncthreads() a chunk.
+//   A staged h_prev row is addressed per row-step (out at the step walked
+//   before, or h0 at a row's first step walked), so chunks may cross row
+//   boundaries; rows past the split's end are zeroed by hand. (16-byte
+//   cp.async copies by all threads cost ~14 address computations a thread
+//   and chunk, in the warps that multiply: staging and product added up,
+//   0.54 ms at H = 128 where this takes 0.40.)
+// - The product: each float32 operand is split in registers into hi =
+//   tf32(x) and lo = x - hi. hi * hi runs as TF32 on mma.sync m16n8k8; the two
+//   corrections lo_a * b and a * lo_b run as bf16 on mma.sync m16n8k16, one
+//   instruction per 16 row-steps where TF32 needs two (4 tensor-core
+//   instructions per 16 row-steps and tile instead of the 6 of 3xTF32);
+//   float32 accumulators. The corrections are 2^-11 of the product and bf16
+//   keeps 8 bits of them, so ~2^-19 per product is lost; against the plain
+//   version the sums are within 1e-5 of the largest entry. Fragments are read
+//   from the staged rows as they lie (A = h_prev^T is "row" with m
+//   contiguous, B = d_hp is "col" with n contiguous); the rows are padded by
+//   8 words, so the 32 lanes of a fragment load hit 32 banks. A lane holds
+//   the row-steps t, t+4, t+8, t+12 of 16 for both operands, which serves
+//   both instruction shapes: the order of k within a product is free as
+//   long as A and B agree. Warps as 2 x 4, a warp tile of (H / 2) x 48.
+// - dn * r is applied to the B fragment as it is loaded; dbh is the column
+//   sum of the same B fragments (exact float32), kept by the warps of the
+//   first row half and reduced over the 4 lanes of a column at the end.
+// - Deterministic: a fixed split of N (`dw_splits`), no atomics.
+// - `nvcc -Xptxas -v` (sm_90a, CUDA 12.8): H = 64: 128 registers (the cap of
+//   two blocks an SM; 56 bytes spilled), 88,064 bytes of dynamic shared
+//   memory; H = 128: 255 registers, no spill, 181,248 bytes.
+//
+// gru_dw_partial_kernel (any H): the float32 SIMT product of 64 x 64 output
+// tiles, 4 x 4 outputs a thread, 16 row-steps staged at a time.
 
 constexpr int DW_TILE = 64;     // output tile: 64 rows k of dWh by 64 columns c
 constexpr int DW_CHUNK = 16;    // row-steps n staged in shared memory at a time
 constexpr int DW_THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
 
-// Partial sums over one split of the N = rows * T row-steps:
-//   part[split, k * 3H + c] = sum_n h_prev[n, k] * d_hp[n, c]
-//   part[split, H * 3H + c] = sum_n d_hp[n, c]          (dbh)
 // grid (ceil(H / 64), ceil(3H / 64), splits).
 __global__ void __launch_bounds__(DW_THREADS)
     gru_dw_partial_kernel(const float* __restrict__ out, const float* __restrict__ h0,
@@ -383,6 +436,279 @@ __global__ void __launch_bounds__(DW_THREADS)
   }
 }
 
+// ---- the tensor-core kernel
+
+constexpr int MMA_BN = 192;       // columns of d_hp per block
+constexpr int MMA_BP = MMA_BN + 8;
+constexpr int MMA_CH = 32;        // row-steps per staged chunk
+constexpr int MMA_THREADS = 256;  // 8 warps: 2 over the rows of dWh, 4 over the columns
+
+constexpr size_t dw_mma_smem_bytes(int H, int STAGES) {
+  return (size_t)STAGES * MMA_CH * ((H + 8) + MMA_BP + (H + 8)) * sizeof(float);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// mbarrier in shared memory: `count` arrivals complete a phase, once the
+// bytes it was told to expect have landed too.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of `parity` to complete; a wait that never ends traps
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 20)) __trap();
+  }
+}
+
+// One contiguous run of bytes (a multiple of 16, 16-byte aligned at both
+// ends) global -> shared by the TMA unit; its bytes are reported to `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x = hi + lo with hi = tf32(x).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, float& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = x - __uint_as_float(hi);
+}
+
+// Two floats as bf16 in one register: `lower` in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lower, float upper) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(upper), "f"(lower));
+  return d;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stages one chunk of MMA_CH row-steps starting at n0: h_prev rows into as
+// [MMA_CH][H + 8], the slab of d_xp into bs [MMA_CH][MMA_BP] and, when the
+// slab reaches the n third, r into rs [MMA_CH][H + 8]. One bulk copy per
+// staged row, started by the first 3 * MMA_CH threads; thread 0 tells the
+// stage's mbarrier how many bytes to expect. Rows past the split's end are
+// zeroed by hand.
+template <int H>
+__device__ __forceinline__ void dw_stage_chunk(float* as, float* bs, float* rs,
+                                               unsigned long long* bar,
+                                               const float* __restrict__ out,
+                                               const float* __restrict__ h0,
+                                               const float* __restrict__ d_xp,
+                                               const float* __restrict__ saved, int n0,
+                                               int n_end, int T, int reverse, int c0,
+                                               bool need_r, int tid) {
+  constexpr int G = 3 * H, AP = H + 8;
+  const int valid = n_end - n0 < MMA_CH ? n_end - n0 : MMA_CH;
+  const unsigned row_bytes = (unsigned)((H + MMA_BN + (need_r ? H : 0)) * sizeof(float));
+  if (tid == 0) mbar_arrive_expect_tx(bar, (unsigned)valid * row_bytes);
+  if (tid >= 3 * MMA_CH) return;
+  const int kind = tid / MMA_CH;  // 0: h_prev, 1: d_xp, 2: r
+  const int nn = tid - kind * MMA_CH;
+  if (kind == 2 && !need_r) return;
+  const int n = n0 + nn;
+  float* dst = kind == 0 ? as + nn * AP : kind == 1 ? bs + nn * MMA_BP : rs + nn * AP;
+  const int words = kind == 1 ? MMA_BN : H;
+  if (n >= n_end) {
+    for (int i = 0; i < words; ++i) dst[i] = 0.0f;
+    return;
+  }
+  const float* src;
+  if (kind == 0) {
+    const int row = n / T;
+    const int t = n - row * T;
+    const int tp = reverse ? t + 1 : t - 1;  // the step the forward walked before t
+    src = (tp < 0 || tp >= T) ? h0 + (size_t)row * H : out + ((size_t)row * T + tp) * H;
+  } else if (kind == 1) {
+    src = d_xp + (size_t)n * G + c0;
+  } else {
+    src = saved + (size_t)n * 4 * H;
+  }
+  bulk_copy(dst, src, (unsigned)(words * sizeof(float)), bar);
+}
+
+// grid (3H / MMA_BN, splits); dynamic shared memory dw_mma_smem_bytes(H, STAGES).
+template <int H, int STAGES>
+__global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
+    gru_dw_mma_kernel(const float* __restrict__ out, const float* __restrict__ h0,
+                      const float* __restrict__ d_xp, const float* __restrict__ saved,
+                      float* __restrict__ part, int rows, int T, int reverse, int n_per_split) {
+  constexpr int G = 3 * H, AP = H + 8;
+  constexpr int MT = H / 32;  // 16-row tiles of a warp: H / 2 rows
+  constexpr int NTL = 6;      // 8-column tiles of a warp: 48 columns
+  constexpr int STAGE = MMA_CH * (AP + MMA_BP + AP);
+  static_assert(3 * MMA_CH <= MMA_THREADS && MMA_CH % 16 == 0, "one thread per staged row");
+  extern __shared__ __align__(16) float dw_smem[];
+  __shared__ unsigned long long full[STAGES];  // one mbarrier per stage
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int c0 = blockIdx.x * MMA_BN;
+  const long long N = (long long)rows * T;
+  const long long nb = (long long)blockIdx.y * n_per_split;
+  const int n_begin = (int)(nb < N ? nb : N);
+  const int n_end = (int)(nb + n_per_split < N ? nb + n_per_split : N);
+  const int nchunks = (n_end - n_begin + MMA_CH - 1) / MMA_CH;
+  const bool need_r = c0 + MMA_BN > 2 * H;
+
+  bool n_third[NTL];  // the tile's columns lie in the n third: d_hp = d_xp * r
+#pragma unroll
+  for (int nt = 0; nt < NTL; ++nt) n_third[nt] = c0 + wn * 48 + nt * 8 >= 2 * H;
+
+  float acc[MT][NTL][4];
+  float bsum[NTL];
+#pragma unroll
+  for (int nt = 0; nt < NTL; ++nt) {
+    bsum[nt] = 0.0f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.0f;
+    }
+  }
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::);
+  }
+  __syncthreads();
+  const auto stage_chunk = [&](int chunk) {
+    const int s = chunk % STAGES;
+    float* st = dw_smem + s * STAGE;
+    dw_stage_chunk<H>(st, st + MMA_CH * AP, st + MMA_CH * (AP + MMA_BP), &full[s], out, h0, d_xp,
+                      saved, n_begin + chunk * MMA_CH, n_end, T, reverse, c0, need_r, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nchunks) stage_chunk(s);
+  }
+
+  for (int i = 0; i < nchunks; ++i) {
+    mbar_wait(&full[i % STAGES], (unsigned)(i / STAGES) & 1u);  // chunk i has landed
+    __syncthreads();  // chunk i-1 has been consumed by every warp: refill its stage
+    if (i + STAGES - 1 < nchunks) stage_chunk(i + STAGES - 1);
+    const float* as = dw_smem + (i % STAGES) * STAGE;
+    const float* bs = as + MMA_CH * AP;
+    const float* rs = bs + MMA_CH * MMA_BP;
+#pragma unroll
+    for (int k16 = 0; k16 < MMA_CH; k16 += 16) {
+      // this lane's row-steps of the 16: t4, t4 + 4, t4 + 8, t4 + 12 (index q)
+      unsigned bh[NTL][4], bp[NTL][2], blp[NTL][2];
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) {
+        const int col = wn * 48 + nt * 8 + g;
+        float b[4], lo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          b[q] = bs[(k16 + t4 + 4 * q) * MMA_BP + col];
+          if (n_third[nt]) b[q] *= rs[(k16 + t4 + 4 * q) * AP + c0 + col - 2 * H];
+          split_tf32(b[q], bh[nt][q], lo[q]);
+        }
+        if (wm == 0) bsum[nt] += (b[0] + b[1]) + (b[2] + b[3]);
+        bp[nt][0] = pack_bf16(b[0], b[1]);
+        bp[nt][1] = pack_bf16(b[2], b[3]);
+        blp[nt][0] = pack_bf16(lo[0], lo[1]);
+        blp[nt][1] = pack_bf16(lo[2], lo[3]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int row = wm * (H / 2) + mt * 16 + g;
+        // a[q][v]: row-step q, dWh row `row + 8 v`
+        float a[4][2], lo[4][2];
+        unsigned ah[4][2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            a[q][v] = as[(k16 + t4 + 4 * q) * AP + row + 8 * v];
+            split_tf32(a[q][v], ah[q][v], lo[q][v]);
+          }
+        }
+        const unsigned ap[4] = {pack_bf16(a[0][0], a[1][0]), pack_bf16(a[0][1], a[1][1]),
+                                pack_bf16(a[2][0], a[3][0]), pack_bf16(a[2][1], a[3][1])};
+        const unsigned alp[4] = {pack_bf16(lo[0][0], lo[1][0]), pack_bf16(lo[0][1], lo[1][1]),
+                                 pack_bf16(lo[2][0], lo[3][0]), pack_bf16(lo[2][1], lo[3][1])};
+        const unsigned ah0[4] = {ah[0][0], ah[0][1], ah[1][0], ah[1][1]};
+        const unsigned ah1[4] = {ah[2][0], ah[2][1], ah[3][0], ah[3][1]};
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) {
+          const unsigned bh0[2] = {bh[nt][0], bh[nt][1]};
+          const unsigned bh1[2] = {bh[nt][2], bh[nt][3]};
+          mma_bf16(acc[mt][nt], alp, bp[nt]);   // lo_a * b
+          mma_bf16(acc[mt][nt], ap, blp[nt]);   // a * lo_b
+          mma_tf32(acc[mt][nt], ah0, bh0);      // hi_a * hi_b, row-steps t4, t4 + 4
+          mma_tf32(acc[mt][nt], ah1, bh1);      // and t4 + 8, t4 + 12
+        }
+      }
+    }
+  }
+
+  float* p = part + (size_t)blockIdx.y * ((size_t)H * G + G);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = wm * (H / 2) + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const int col = c0 + wn * 48 + nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(p + (size_t)row * G + col) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + (size_t)(row + 8) * G + col) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+  if (wm == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      float v = bsum[nt];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t4 == 0) p[(size_t)H * G + c0 + wn * 48 + nt * 8 + g] = v;
+    }
+  }
+}
+
 // dw[i] = sum over splits, in split order, of part[split, i]; i < H*3H + 3H.
 __global__ void gru_dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
                                   int splits, int size) {
@@ -476,6 +802,19 @@ cudaError_t dispatch_bwd(int rpt, const BwdArgs& a, cudaStream_t stream) {
   }
 }
 
+template <int H, int STAGES>
+cudaError_t launch_dw_mma(dim3 grid, const float* out, const float* h0, const float* d_xp,
+                          const float* saved, float* part, int rows, int T, int reverse,
+                          int n_per_split, cudaStream_t stream) {
+  auto kernel = gru_dw_mma_kernel<H, STAGES>;
+  const size_t smem = dw_mma_smem_bytes(H, STAGES);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(out, h0, d_xp, saved, part, rows, T, reverse,
+                                              n_per_split);
+  return cudaGetLastError();
+}
+
 bool args_ok(int rows, int T, int H, int rpt) {
   return rows >= 1 && T >= 0 && H >= 1 && H <= 1024 &&
          (rpt == 1 || rpt == 2 || rpt == 4 || rpt == 8);
@@ -521,18 +860,38 @@ int trunet_gru_bwd(const void* g, const void* g_hT, const void* out, const void*
 }
 
 // Per-split partial sums of dWh and dbh into part (splits, H*3H + 3H);
-// splits * n_per_split must cover rows * T.
+// splits * n_per_split must cover rows * T. path 0: the float32 SIMT kernel,
+// any H; path 1: the tensor-core kernel, H = 64 or 128, every tensor aligned
+// to 16 bytes, rows * T < 2^31.
 int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, const void* saved,
                           void* part, int rows, int T, int H, int reverse, int splits,
-                          int n_per_split, void* stream) {
+                          int n_per_split, int path, void* stream) {
   if (rows < 1 || T < 1 || H < 1 || splits < 1 || n_per_split < 1 ||
       (long long)splits * n_per_split < (long long)rows * T)
     return (int)cudaErrorInvalidValue;
+  const float* outf = static_cast<const float*>(out);
+  const float* h0f = static_cast<const float*>(h0);
+  const float* dxf = static_cast<const float*>(d_xp);
+  const float* svf = static_cast<const float*>(saved);
+  float* pf = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    const auto misaligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 != 0; };
+    if ((H != 64 && H != 128) || splits > 65535 || (long long)rows * T >= (1LL << 31) ||
+        misaligned(out) || misaligned(h0) || misaligned(d_xp) || misaligned(saved) ||
+        misaligned(part))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(3 * H / MMA_BN, splits);
+    if (H == 64)
+      return (int)launch_dw_mma<64, 2>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
+                                       n_per_split, s);
+    return (int)launch_dw_mma<128, 3>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
+                                      n_per_split, s);
+  }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((H + DW_TILE - 1) / DW_TILE, (3 * H + DW_TILE - 1) / DW_TILE, splits);
-  gru_dw_partial_kernel<<<grid, DW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(out), static_cast<const float*>(h0),
-      static_cast<const float*>(d_xp), static_cast<const float*>(saved),
-      static_cast<float*>(part), rows, T, H, reverse, n_per_split);
+  gru_dw_partial_kernel<<<grid, DW_THREADS, 0, s>>>(outf, h0f, dxf, svf, pf, rows, T, H, reverse,
+                                                    n_per_split);
   return (int)cudaGetLastError();
 }
 

@@ -5,13 +5,17 @@ All tensors are float32: x_proj (rows, T, 3H), h0 (rows, H), wh (H, 3H),
 bh (3H,); outputs (rows, T, H).
 
 - `gru_recurrence`: the forward recurrence of inference, (outputs, h after
-  the last step walked). Kernel `gru_fwd`.
+  the last step walked). Kernel `gru_fwd`, on one of three paths chosen by
+  `fwd_plan`: Wh resident in registers (H 64, 128), the same across a thread
+  block cluster (H 256, 512), or the general kernel (any H up to 1024).
 - `gru_recurrence_train`: the same, also returning the residuals saved
   (rows, T, 4H) = (r, z, n, hn) per step. Kernel `gru_fwd_train`.
 - `gru_recurrence_bwd`: the BPTT, (d_xp, dWh, dbh, dh0). On a card it runs
   `bptt` (kernel `gru_bwd`: d_xp, dh0), then `dw_partial` and `dw_sum`
   (kernels `gru_dw_partial` and `gru_dw_sum`: dWh, dbh); these three take
-  CUDA tensors only.
+  CUDA tensors only. `gru_dw_partial` runs on the tensor cores (TF32 with
+  bf16 corrections, float32 accuracy) at H 64 and 128 and as a float32 SIMT
+  product otherwise (`dw_splits`).
 - `GRURecurrence`: a `torch.autograd.Function` over (x_proj, h0, wh, bh,
   reverse) whose forward is `gru_recurrence_train` and whose backward is
   `gru_recurrence_bwd`. The input projection and its gradients stay plain
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +42,8 @@ from tinyrecurrentunet_torch.ops import build
 from tinyrecurrentunet_torch.ops import gru as gru_ops
 
 launches = 0  # gru_fwd
+last_fwd_plan = None  # the FwdPlan of the last gru_fwd launch
+last_dw_plan = None  # (tensor cores?, splits, row-steps per split) of the last gru_dw_partial launch
 fwd_train_launches = 0
 bwd_launches = 0
 dw_partial_launches = 0
@@ -45,6 +52,26 @@ dw_sum_launches = 0
 _MAX_HIDDEN = 1024  # one thread per hidden unit, one block per row tile
 _DW_TILE = 64  # the output tile of gru_dw_partial_kernel
 _DW_MIN_STEPS = 256  # fewest row-steps one split of the weight gradient sums
+_DW_MMA_CHUNK = 32  # row-steps gru_dw_mma_kernel stages at a time
+_DW_MMA_SLAB = 192  # columns of d_hp one block of gru_dw_mma_kernel owns
+_DW_MMA_HIDDEN = (64, 128)  # hidden sizes gru_dw_mma_kernel is built for
+
+
+class FwdPlan(NamedTuple):
+    """How one `gru_fwd` launch runs."""
+
+    path: str  # "general", "registers" or "cluster"
+    rows_per_tile: int  # rows a block (a cluster) walks
+
+
+# hidden size -> (blocks of a cluster, blocks an SM holds, rows per tile built)
+# of gru_fwd_resident_kernel
+_RESIDENT = {
+    64: (1, 4, (1, 2, 4, 8)),
+    128: (1, 1, (1, 2, 4)),
+    256: (8, 1, (1, 2, 4, 8)),
+    512: (16, 1, (1, 2, 3, 4)),
+}
 
 
 def launch_counts() -> dict[str, int]:
@@ -72,10 +99,42 @@ def rows_per_block(rows: int, hidden: int, num_sms: int) -> int:
     return rpb
 
 
-def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
+def fwd_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int | None = None) -> FwdPlan:
+    """The plan of one `gru_fwd` launch.
+
+    "registers" (H 64, 128) and "cluster" (H 256, 512: 8 and 16 blocks share
+    a row tile) keep Wh in registers; they take the fewest rows per tile that
+    keep the grid within one wave of the card, or the most the kernel is
+    built for. One wave is four blocks an SM at H 64, one at H 128, and
+    `max_clusters` clusters (what the card says it holds at once; by default
+    the SMs over the cluster size). "general" is the kernel for every other
+    H, with `rows_per_block`.
+    """
+    if hidden not in _RESIDENT:
+        return FwdPlan("general", rows_per_block(rows, hidden, num_sms))
+    cluster, per_sm, tiles = _RESIDENT[hidden]
+    wave = num_sms * per_sm // cluster
+    if cluster > 1 and max_clusters is not None:
+        wave = max_clusters
+    fits = [t for t in tiles if -(-rows // t) <= wave]
+    return FwdPlan("cluster" if cluster > 1 else "registers", fits[0] if fits else tiles[-1])
+
+
+def dw_splits(steps: int, hidden: int, num_sms: int, tensor_cores: bool | None = None) -> tuple[int, int]:
     """(splits, row-steps per split) of the weight-gradient reduction over
-    `steps` = rows * T: about two blocks per SM over the 64 x 64 output
-    tiles, each split summing at least 256 row-steps."""
+    `steps` = rows * T, each split summing at least 256 row-steps.
+
+    About two blocks per SM either way. On the tensor cores (the default at
+    H 64 and 128) a block owns all H rows and 192 columns of dWh, and a split
+    is whole chunks of 32 row-steps; the SIMT kernel has 64 x 64 output tiles.
+    """
+    if tensor_cores is None:
+        tensor_cores = hidden in _DW_MMA_HIDDEN
+    if tensor_cores:
+        slabs = 3 * hidden // _DW_MMA_SLAB
+        splits = max(1, min(-(-steps // _DW_MIN_STEPS), 2 * num_sms // slabs))
+        per_split = -(-steps // (splits * _DW_MMA_CHUNK)) * _DW_MMA_CHUNK
+        return -(-steps // per_split), per_split
     tiles = -(-hidden // _DW_TILE) * -(-3 * hidden // _DW_TILE)
     splits = max(1, min(-(-steps // _DW_MIN_STEPS), -(-2 * num_sms // tiles)))
     per_split = -(-steps // splits)
@@ -86,10 +145,10 @@ def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
 def _lib() -> ctypes.CDLL:
     lib = build.load("gru_fwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.trunet_gru_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.trunet_gru_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.trunet_gru_fwd.restype = i32
-    lib.trunet_gru_fwd_wh_in_smem.argtypes = [i32, i32]
-    lib.trunet_gru_fwd_wh_in_smem.restype = i32
+    lib.trunet_gru_fwd_max_clusters.argtypes = [i32]
+    lib.trunet_gru_fwd_max_clusters.restype = i32
     lib.trunet_cuda_error_string.argtypes = [i32]
     lib.trunet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -102,7 +161,7 @@ def _train_lib() -> ctypes.CDLL:
     signatures = {
         "trunet_gru_fwd_train": [ptr] * 7 + [i32] * 5 + [ptr],
         "trunet_gru_bwd": [ptr] * 8 + [i32] * 5 + [ptr],
-        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 6 + [ptr],
+        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 7 + [ptr],
         "trunet_gru_dw_sum": [ptr] * 2 + [i32] * 2 + [ptr],
     }
     for name, argtypes in signatures.items():
@@ -171,8 +230,26 @@ def _raise_on_error(lib, err: int, kernel: str, error_string: str):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
+@functools.cache
 def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _max_clusters(device: torch.device, hidden: int) -> int | None:
+    """Clusters of the resident kernel that `device` holds at once (H 256,
+    512); None where the kernel runs without clusters. Raises if the card
+    cannot schedule the cluster at all."""
+    if _RESIDENT.get(hidden, (1,))[0] == 1:
+        return None
+    lib = _lib()
+    with torch.cuda.device(device):
+        clusters = lib.trunet_gru_fwd_max_clusters(hidden)
+    if clusters < 0:
+        _raise_on_error(lib, -clusters, "gru_fwd cluster occupancy query", "trunet_cuda_error_string")
+    if clusters == 0:
+        raise RuntimeError(f"gru_fwd: the card cannot schedule the clusters of the H={hidden} kernel")
+    return clusters
 
 
 def gru_recurrence(
@@ -188,8 +265,9 @@ def gru_recurrence(
     return _launch(x_proj, h0, wh, bh, reverse)
 
 
-def _launch(x_proj, h0, wh, bh, reverse):
-    global launches
+def _launch(x_proj, h0, wh, bh, reverse, plan=None):
+    """Launches `gru_fwd` on `plan` (default: `fwd_plan` of the shapes)."""
+    global launches, last_fwd_plan
     _check(x_proj, h0, wh, bh)
     rows, steps, g = x_proj.shape
     hidden = g // 3
@@ -197,17 +275,20 @@ def _launch(x_proj, h0, wh, bh, reverse):
     h_last = torch.empty((rows, hidden), dtype=torch.float32, device=x_proj.device)
     if rows == 0:
         return out, h_last
+    plan = plan or fwd_plan(rows, steps, hidden, _num_sms(x_proj.device),
+                            _max_clusters(x_proj.device, hidden))
     lib = _lib()
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream()
         err = lib.trunet_gru_fwd(
             x_proj.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
             out.data_ptr(), h_last.data_ptr(),
-            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, _num_sms(x_proj.device)),
+            rows, steps, hidden, int(reverse), plan.rows_per_tile, int(plan.path != "general"),
             stream.cuda_stream,
         )
-    _raise_on_error(lib, err, "gru_fwd", "trunet_cuda_error_string")
+    _raise_on_error(lib, err, f"gru_fwd {plan}", "trunet_cuda_error_string")
     launches += 1
+    last_fwd_plan = plan
     return out, h_last
 
 
@@ -298,7 +379,13 @@ def bptt(g, g_hT, out, saved, h0, wh, reverse: bool = False):
 def dw_partial(out, h0, d_xp, saved, reverse: bool = False) -> torch.Tensor:
     """Kernel `gru_dw_partial`: per-split sums of dWh and dbh over the
     rows * T row-steps, (splits, H*3H + 3H). CUDA tensors only; rows, T >= 1."""
-    global dw_partial_launches
+    return _launch_dw(out, h0, d_xp, saved, reverse)
+
+
+def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
+    """Launches `gru_dw_partial` on `plan` = (tensor cores?, splits, row-steps
+    per split); default: the tensor cores where they apply, and `dw_splits`."""
+    global dw_partial_launches, last_dw_plan
     _require_card(out, "gru_dw_partial")
     rows, steps, hidden = out.shape
     _check_tensors(out, out=out, h0=h0, d_xp=d_xp, saved=saved)
@@ -307,17 +394,23 @@ def dw_partial(out, h0, d_xp, saved, reverse: bool = False) -> torch.Tensor:
     _check_shape("saved", saved, (rows, steps, 4 * hidden))
     if rows < 1 or steps < 1:
         raise ValueError(f"gru_dw_partial needs rows, T >= 1, got {rows}, {steps}")
-    splits, per_split = dw_splits(rows * steps, hidden, _num_sms(out.device))
+    if plan is None:
+        # the tensor-core kernel copies 16 bytes at a time
+        tensor_cores = hidden in _DW_MMA_HIDDEN and rows * steps < 2**31 and not any(
+            t.data_ptr() % 16 for t in (out, h0, d_xp, saved))
+        plan = (tensor_cores, *dw_splits(rows * steps, hidden, _num_sms(out.device), tensor_cores))
+    tensor_cores, splits, per_split = plan
     part = torch.empty((splits, 3 * hidden * (hidden + 1)), dtype=torch.float32, device=out.device)
     lib = _train_lib()
     with torch.cuda.device(out.device):
         err = lib.trunet_gru_dw_partial(
             out.data_ptr(), h0.data_ptr(), d_xp.data_ptr(), saved.data_ptr(), part.data_ptr(),
-            rows, steps, hidden, int(reverse), splits, per_split,
+            rows, steps, hidden, int(reverse), splits, per_split, int(tensor_cores),
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, "gru_dw_partial", "trunet_gru_train_error_string")
+    _raise_on_error(lib, err, f"gru_dw_partial {plan}", "trunet_gru_train_error_string")
     dw_partial_launches += 1
+    last_dw_plan = tuple(plan)
     return part
 
 
