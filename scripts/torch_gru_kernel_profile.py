@@ -1,17 +1,22 @@
 """Sweeps the launch plans of the port's `gru_fwd` and `gru_dw_partial`
-kernels on the card, at the shapes the flagship and large16k give them.
+kernels on the card, at the shapes the flagship and large16k give them in
+serving (batch 1, a 4 s clip) and in evaluation and training at batch 64 of
+2 s clips.
 
     python scripts/torch_gru_kernel_profile.py [--only fwd|dw] [--iters 20]
 
-For every shape and every plan (path and rows per tile for `gru_fwd`; tensor cores or not, splits for `gru_dw_partial`) it prints
-one JSON line: the error against the plain PyTorch version on the same
-inputs, the kernel's time by CUDA events (and for `gru_fwd` its device time
-under torch.profiler, which leaves the host's launch cost out), and the time
-of the PyTorch call
-that computes the same function (torch.nn.GRU, torch.matmul on operands
-made beforehand). The plan that `fwd_plan` / `dw_splits` choose is marked
-"chosen". The build log (ptxas registers and spills) comes first. Needs a
-CUDA card and nvcc.
+For every shape and every plan (path and rows per tile for `gru_fwd`, so
+every instantiation the library builds is launched; splits for
+`gru_dw_partial`) it prints one JSON line: the error against the plain
+PyTorch version on the same inputs, the errors of both against the plain
+version in float64, the kernel's time by CUDA events (for `gru_fwd` also its
+device time under torch.profiler, which leaves the host's launch cost out),
+and the time of the PyTorch call that computes the same function
+(torch.nn.GRU, torch.matmul on operands made beforehand). The plan that
+`fwd_plan` / `dw_splits` choose is marked "chosen". The build log (ptxas
+registers and spills) comes first. Fails if any plan misses chip_smoke.py's
+tolerance against the plain version (KERNEL_ATOL, DW_RTOL). Needs a CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -19,15 +24,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
-import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from chip_smoke import (DW_RTOL, KERNEL_ATOL, cuda_ms, gru_inputs, max_abs, max_rel,  # noqa: E402
+                        nvidia_smi_line, randn, torch_gru_same_function)
 from tinyrecurrentunet_torch.ops import build, cuda_gru  # noqa: E402
 from tinyrecurrentunet_torch.ops import gru as gru_ops  # noqa: E402
 
@@ -39,23 +44,17 @@ FWD_SHAPES = [
     ("large16k_fgru_fwd", 556, 16, 256, False),
     ("large16k_fgru_rev", 556, 16, 256, True),
     ("large16k_tgru", 16, 556, 512, False),
+    # evaluation at batch 64 of 2 s clips, as validation inside train() runs it
+    ("eval64_fgru", 16064, 16, 64, False),
+    ("eval64_tgru", 1024, 251, 128, False),
+    ("eval64_large16k_fgru", 16064, 16, 256, False),
+    ("eval64_large16k_tgru", 1024, 251, 512, False),
 ]
 DW_SHAPES = [
     ("train_fgru_fwd", 16064, 16, 64, False),
     ("train_fgru_rev", 16064, 16, 64, True),
     ("train_tgru", 1024, 251, 128, False),
 ]
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, name: str, iters: int = 10) -> float:
@@ -73,59 +72,47 @@ def device_ms(fn, name: str, iters: int = 10) -> float:
     return total / iters / 1e3
 
 
-def inputs(rows, steps, hidden, seed, device):
-    rng = np.random.default_rng(seed)
-    k = 1.0 / np.sqrt(hidden)
-    arrays = (rng.standard_normal((rows, steps, 3 * hidden)) * 0.5,
-              rng.standard_normal((rows, hidden)) * 0.1,
-              rng.uniform(-k, k, (hidden, 3 * hidden)),
-              rng.uniform(-k, k, (3 * hidden,)))
-    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
-
-
-def library_gru(x_proj, h0, wh, bh, reverse):
-    g = wh.shape[-1]
-    gru = torch.nn.GRU(g, g // 3, batch_first=True).to(wh.device)
-    with torch.no_grad():
-        gru.weight_ih_l0.copy_(torch.eye(g))
-        gru.bias_ih_l0.zero_()
-        gru.weight_hh_l0.copy_(wh.T)
-        gru.bias_hh_l0.copy_(bh)
-    xs = x_proj.flip(1) if reverse else x_proj
-    return lambda: gru(xs, h0[None])
-
-
-def sweep_fwd(iters: int, num_sms: int):
+def sweep_fwd(iters: int, num_sms: int) -> list[str]:
     device = torch.device("cuda")
+    failures = []
     for seed, (name, rows, steps, hidden, reverse) in enumerate(FWD_SHAPES):
-        x_proj, h0, wh, bh = inputs(rows, steps, hidden, seed, device)
-        want = gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
+        args = gru_inputs(rows, steps, hidden, seed, device)
+        want = gru_ops.gru_recurrence(*args, reverse=reverse)
+        want64 = gru_ops.gru_recurrence(*(a.double() for a in args), reverse=reverse)
+        plain_err64 = max(max_abs(a.double(), b) for a, b in zip(want, want64))
         with torch.no_grad():
-            library_ms = cuda_ms(library_gru(x_proj, h0, wh, bh, reverse), iters)
+            library_ms = cuda_ms(torch_gru_same_function(*args, reverse), iters)
         max_clusters = cuda_gru._max_clusters(device, hidden)
         chosen = cuda_gru.fwd_plan(rows, steps, hidden, num_sms, max_clusters)
         plans = [cuda_gru.FwdPlan("general", r) for r in (1, 2, 4, 8) if hidden * r * 2 <= 2048 or r == 1]
         plans += [cuda_gru.FwdPlan(chosen.path, r) for r in cuda_gru._RESIDENT[hidden][2]]
         for plan in plans:
-            got = cuda_gru._launch(x_proj, h0, wh, bh, reverse, plan=plan)
+            def run():
+                return cuda_gru._launch(*args, reverse, plan=plan)
+
+            got = run()
             torch.cuda.synchronize()
-            err = max((a - b).abs().max().item() for a, b in zip(got, want))
-            ms = cuda_ms(lambda: cuda_gru._launch(x_proj, h0, wh, bh, reverse, plan=plan), iters)
-            dev = device_ms(lambda: cuda_gru._launch(x_proj, h0, wh, bh, reverse, plan=plan), "gru_fwd")
-            print(json.dumps({"kernel": "gru_fwd", "shape": name, "rows": rows, "T": steps, "H": hidden,
-                              **plan._asdict(), "chosen": plan == chosen, "max_clusters": max_clusters,
-                              "max_abs_err": err, "ms": ms,
-                              "device_ms": dev,
-                              "library_ms": library_ms}), flush=True)
+            err = max(max_abs(a, b) for a, b in zip(got, want))
+            print(json.dumps({
+                "kernel": "gru_fwd", "shape": name, "rows": rows, "T": steps, "H": hidden,
+                **plan._asdict(), "chosen": plan == chosen, "max_clusters": max_clusters,
+                "max_abs_err": err,
+                "max_abs_err_vs_float64": max(max_abs(a.double(), b) for a, b in zip(got, want64)),
+                "plain_abs_err_vs_float64": plain_err64,
+                "ms": cuda_ms(run, iters), "device_ms": device_ms(run, "gru_fwd"),
+                "library_ms": library_ms}), flush=True)
+            if not err <= KERNEL_ATOL:
+                failures.append(f"gru_fwd {name} {plan}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
+    return failures
 
 
-def sweep_dw(iters: int, num_sms: int):
+def sweep_dw(iters: int, num_sms: int) -> list[str]:
     device = torch.device("cuda")
+    failures = []
     for seed, (name, rows, steps, hidden, reverse) in enumerate(DW_SHAPES):
-        x_proj, h0, wh, bh = inputs(rows, steps, hidden, 10 + seed, device)
-        rng = np.random.default_rng(100 + seed)
-        g = torch.from_numpy(rng.standard_normal((rows, steps, hidden)).astype(np.float32)).to(device)
-        g_hT = torch.from_numpy(rng.standard_normal((rows, hidden)).astype(np.float32)).to(device)
+        x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, 10 + seed, device)
+        g = randn((rows, steps, hidden), 110 + seed, device)
+        g_hT = randn((rows, hidden), 210 + seed, device)
         out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
         d_xp, want_dwh, want_dbh, _ = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
         h_prev = torch.cat([out[:, 1:], h0[:, None]], 1) if reverse else torch.cat([h0[:, None], out[:, :-1]], 1)
@@ -135,30 +122,35 @@ def sweep_dw(iters: int, num_sms: int):
         library_ms = cuda_ms(lambda: torch.matmul(hp_flat.T, dhp_flat), iters)
         want64 = hp_flat.double().T @ dhp_flat.double()
         n = rows * steps
-        chosen = (True, *cuda_gru.dw_splits(n, hidden, num_sms))
-        plans = [(False, *cuda_gru.dw_splits(n, hidden, num_sms, tensor_cores=False)), chosen]
+        chosen = cuda_gru.dw_splits(n, hidden, num_sms)
+        plans = [chosen]
         slabs = 3 * hidden // 192
         for blocks_per_sm in (1, 2, 4):
             splits = num_sms * blocks_per_sm // slabs
             per_split = -(-n // (splits * 32)) * 32
-            plan = (True, -(-n // per_split), per_split)
+            plan = (-(-n // per_split), per_split)
             if plan not in plans:
                 plans.append(plan)
         for plan in plans:
-            part = cuda_gru._launch_dw(out, h0, d_xp, saved, reverse, plan=plan)
+            def run():
+                return cuda_gru._launch_dw(out, h0, d_xp, saved, reverse, plan=plan)
+
+            part = run()
             dwh, dbh = cuda_gru.dw_sum(part, hidden)
             torch.cuda.synchronize()
-            scale = want_dwh.abs().max().item()
-            ms = cuda_ms(lambda: cuda_gru._launch_dw(out, h0, d_xp, saved, reverse, plan=plan), iters)
-            sum_ms = cuda_ms(lambda: cuda_gru.dw_sum(part, hidden), iters)
+            err = max(max_rel(dwh, want_dwh), max_rel(dbh, want_dbh))
             print(json.dumps({
                 "kernel": "gru_dw_partial", "shape": name, "rows": rows, "T": steps, "H": hidden,
-                "tensor_cores": plan[0], "splits": plan[1], "per_split": plan[2], "chosen": plan == chosen,
-                "max_rel_err": (dwh - want_dwh).abs().max().item() / scale,
-                "max_rel_err_vs_float64": (dwh.double() - want64).abs().max().item() / scale,
-                "plain_rel_err_vs_float64": (want_dwh.double() - want64).abs().max().item() / scale,
-                "dbh_max_rel_err": (dbh - want_dbh).abs().max().item() / want_dbh.abs().max().item(),
-                "ms": ms, "dw_sum_ms": sum_ms, "library_ms": library_ms}), flush=True)
+                "tensor_cores": cuda_gru.last_dw_plan[0], "splits": plan[0], "per_split": plan[1],
+                "chosen": plan == chosen, "max_rel_err": err,
+                "max_rel_err_vs_float64": max_rel(dwh.double(), want64),
+                "plain_rel_err_vs_float64": max_rel(want_dwh.double(), want64),
+                "library_rel_err_vs_float64": max_rel(torch.matmul(hp_flat.T, dhp_flat).double(), want64),
+                "ms": cuda_ms(run, iters), "dw_sum_ms": cuda_ms(lambda: cuda_gru.dw_sum(part, hidden), iters),
+                "library_ms": library_ms}), flush=True)
+            if not err <= DW_RTOL:
+                failures.append(f"gru_dw_partial {name} {plan}: max rel err {err:.3e} > {DW_RTOL:.0e}")
+    return failures
 
 
 def main():
@@ -173,12 +165,14 @@ def main():
     for name, text in build.build_all().items():
         print(f"[build:{name}] {text.strip()}", flush=True)
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    failures = []
     if args.only != "dw":
-        sweep_fwd(args.iters, num_sms)
+        failures += sweep_fwd(args.iters, num_sms)
     if args.only != "fwd":
-        sweep_dw(args.iters, num_sms)
+        failures += sweep_dw(args.iters, num_sms)
+    if failures:
+        sys.exit("\n".join(failures))
 
 
 if __name__ == "__main__":

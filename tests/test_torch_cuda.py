@@ -65,6 +65,16 @@ def _inputs(rows, steps, hidden, seed, device):
     (1, 9, 64, "registers"),      # rows = 1
     (1, 9, 256, "cluster"),
     (3, 1, 8, "general"),
+    (16064, 16, 64, "registers"),  # evaluation at batch 64 of 2 s clips: several waves
+    (1024, 251, 128, "registers"),
+    (5000, 3, 64, "registers"),    # many rows: the most rows per tile
+    (1200, 3, 64, "registers"),
+    (600, 3, 128, "registers"),
+    (30, 3, 256, "cluster"),
+    (50, 3, 256, "cluster"),
+    (5, 3, 512, "cluster"),
+    (12, 3, 512, "cluster"),
+    (30, 3, 512, "cluster"),
 ])
 def test_kernel_matches_plain_version(card, rows, steps, hidden, path, reverse):
     x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
@@ -73,6 +83,22 @@ def test_kernel_matches_plain_version(card, rows, steps, hidden, path, reverse):
     torch.cuda.synchronize()
     assert cuda_gru.launches == before + 1
     assert cuda_gru.last_fwd_plan.path == path
+    ref_out, ref_h = gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=ATOL)
+    torch.testing.assert_close(h_last, ref_h, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden,rows_per_tile", [
+    (hidden, r) for hidden, (_, _, tiles) in cuda_gru._RESIDENT.items() for r in tiles])
+def test_every_resident_instantiation(card, hidden, rows_per_tile, reverse):
+    """Every (H, rows per tile) the library builds, on a ragged last tile and
+    over more tiles than one wave of clusters."""
+    rows, steps = 20 * rows_per_tile + 1, 5
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, hidden + rows_per_tile, card)
+    path = "cluster" if cuda_gru._RESIDENT[hidden][0] > 1 else "registers"
+    out, h_last = cuda_gru._launch(x_proj, h0, wh, bh, reverse, plan=cuda_gru.FwdPlan(path, rows_per_tile))
+    torch.cuda.synchronize()
     ref_out, ref_h = gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
     torch.testing.assert_close(out, ref_out, rtol=0, atol=ATOL)
     torch.testing.assert_close(h_last, ref_h, rtol=0, atol=ATOL)
@@ -134,25 +160,21 @@ def test_training_kernels_match_plain_versions(card, rows, steps, hidden, revers
         "gru_fwd": 0, "gru_fwd_train": 1, "gru_bwd": 1, "gru_dw_partial": 1, "gru_dw_sum": 1}
 
 
-@pytest.mark.parametrize("rows,steps,hidden", [(1001, 13, 64), (37, 11, 128)])
-def test_weight_gradient_kernels_agree(card, rows, steps, hidden):
-    """The tensor-core reduction against the float32 SIMT one on the
-    same inputs, and on tensors that are not aligned to 16 bytes the wrapper
-    takes the SIMT kernel."""
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_tensor_core_reduction_refuses_misaligned_tensors(card, hidden):
+    """The tensor-core kernel copies 16 bytes at a time: a tensor off a
+    16-byte boundary raises, it does not take another kernel."""
+    rows, steps = 37, 11
     x_proj, h0, wh, bh = _inputs(rows, steps, hidden, 7, card)
     g, g_hT = _grads(rows, steps, hidden, 7, card)
     out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh)
     d_xp = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh)[0]
-    results = {}
-    for tensor_cores in (True, False):
-        plan = (tensor_cores, *cuda_gru.dw_splits(rows * steps, hidden, 132, tensor_cores))
-        results[tensor_cores] = cuda_gru.dw_sum(cuda_gru._launch_dw(out, h0, d_xp, saved, False, plan=plan), hidden)
-    for a, b in zip(results[True], results[False]):
-        assert _rel(a, b) <= 1e-4
     flat = torch.empty(out.numel() + 1, device=card)
     shifted = flat[1:].view_as(out).copy_(out)  # 4 bytes off a 16-byte boundary
-    cuda_gru.dw_partial(shifted, h0, d_xp, saved)
-    assert cuda_gru.last_dw_plan[0] is False
+    before = cuda_gru.dw_partial_launches
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        cuda_gru.dw_partial(shifted, h0, d_xp, saved)
+    assert cuda_gru.dw_partial_launches == before
     cuda_gru.dw_partial(out, h0, d_xp, saved)
     assert cuda_gru.last_dw_plan[0] is True
 

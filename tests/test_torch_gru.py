@@ -143,6 +143,10 @@ def test_rows_per_block(rows, hidden, expect):
     (5000, 3, 128, ("registers", 4)),   # the most rows per tile the kernel is built for
     (5000, 3, 64, ("registers", 8)),
     (1, 0, 64, ("registers", 1)),
+    (16064, 16, 64, ("registers", 8)),  # evaluation at batch 64 of 2 s clips: several waves
+    (1024, 251, 128, ("registers", 4)),
+    (16064, 16, 256, ("cluster", 8)),
+    (1024, 251, 512, ("cluster", 4)),
     (7, 9, 40, ("general", 1)),         # any other H: the general kernel with rows_per_block
     (301, 9, 40, ("general", 4)),
     (16, 556, 1024, ("general", 1)),

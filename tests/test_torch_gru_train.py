@@ -169,17 +169,10 @@ def test_bwd_argument_checks(index, bad, err):
     # the SIMT kernel (any other H): 64 x 64 tiles
     (100, 8, (1, 100)),
     (133 * 5, 256, (3, 222)),
+    (16064 * 16, 32, (132, 1948)),   # 2 tiles x 132 splits
+    (1024 * 251, 512, (2, 128512)),  # 192 tiles x 2 splits
 ])
 def test_dw_splits(steps, hidden, expect):
     splits, per_split = cuda_gru.dw_splits(steps, hidden, 132)
     assert (splits, per_split) == expect
     assert splits * per_split >= steps > (splits - 1) * per_split
-
-
-@pytest.mark.parametrize("steps,hidden,expect", [
-    (16064 * 16, 64, (88, 2921)),    # 3 tiles x 88 splits
-    (1024 * 251, 128, (22, 11683)),  # 12 tiles x 22 splits
-])
-def test_dw_splits_of_the_simt_kernel_at_the_tensor_core_sizes(steps, hidden, expect):
-    """Tensors that are not 16-byte aligned take the SIMT kernel at H 64 and 128."""
-    assert cuda_gru.dw_splits(steps, hidden, 132, tensor_cores=False) == expect

@@ -52,8 +52,9 @@
 //   H = 256: clusters of 8 blocks of 192 threads, 32 units each (C 4, KS 8).
 //   H = 512: clusters of 16 blocks (non-portable size) of 384 threads, 32
 //   units each (C 4, KS 16); a block's slice of the 3 MB Wh is 48k words.
-// A cluster that cannot be scheduled is an error of the launch
-// (cudaOccupancyMaxActiveClusters), never a change of path.
+// A cluster that cannot be scheduled is an error (the wrapper asks
+// cudaOccupancyMaxActiveClusters once per device and raises on 0; the launch
+// itself fails otherwise), never a change of path.
 //
 // gru_fwd_kernel<RPT, WH_SMEM> (path "general", any 1 <= H <= 1024). One
 // block owns RPT rows, thread j owns hidden unit j and computes the three
@@ -423,24 +424,16 @@ cudaError_t dispatch_general(int rpt, const Args& a, cudaStream_t stream) {
   }
 }
 
-// One cluster of CS blocks per tile of R rows (CS = 1: plain blocks). A
-// cluster that the card cannot hold is an error, not a change of path.
 // The launch of the resident kernel over `tiles` row tiles: one cluster of
 // CS blocks per tile (CS = 1: plain blocks). `attr` must outlive `cfg`.
-template <int H, int CS, int C, int KS, int R>
-cudaError_t resident_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int tiles,
-                            cudaStream_t stream) {
+template <int CS>
+void resident_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int threads, int tiles,
+                     cudaStream_t stream) {
   cfg = {};
   cfg.gridDim = dim3((unsigned)tiles * CS);
-  cfg.blockDim = dim3(3 * (H / CS) / C * KS);
-  cfg.dynamicSmemBytes = 0;
+  cfg.blockDim = dim3(threads);
   cfg.stream = stream;
   if (CS > 1) {
-    if (CS > 8) {
-      cudaError_t err = cudaFuncSetAttribute(gru_fwd_resident_kernel<H, CS, C, KS, R>,
-                                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return err;
-    }
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = CS;
     attr[0].val.clusterDim.y = 1;
@@ -448,34 +441,34 @@ cudaError_t resident_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, 
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
-  return cudaSuccess;
 }
 
-// Clusters of the kernel the card holds at once (CS = 1: not asked).
+// Allows the kernel its cluster size on the current device where that is
+// above the portable 8, and reports the clusters the device holds at once.
 template <int H, int CS, int C, int KS, int R>
-cudaError_t resident_max_clusters(int* clusters) {
+cudaError_t resident_prepare(int* clusters) {
+  auto kernel = gru_fwd_resident_kernel<H, CS, C, KS, R>;
+  if (CS > 8) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = resident_config<H, CS, C, KS, R>(cfg, attr, 64, nullptr);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(clusters, gru_fwd_resident_kernel<H, CS, C, KS, R>, &cfg);
+  resident_config<CS>(cfg, attr, 3 * (H / CS) / C * KS, 64, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
-// A cluster that the card cannot hold is an error, not a change of path.
+// A cluster that the card cannot hold, or a cluster size that
+// trunet_gru_fwd_max_clusters has not allowed on this device, is an error of
+// the launch, not a change of path.
 template <int H, int CS, int C, int KS, int R>
 cudaError_t launch_resident(const Args& a, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = resident_config<H, CS, C, KS, R>(cfg, attr, (a.rows + R - 1) / R, stream);
-  if (err != cudaSuccess) return err;
-  if (CS > 1) {
-    int clusters = 0;
-    err = resident_max_clusters<H, CS, C, KS, R>(&clusters);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  }
-  err = cudaLaunchKernelEx(&cfg, gru_fwd_resident_kernel<H, CS, C, KS, R>, a.xp, a.h0, a.wh,
-                           a.bh, a.out, a.h_last, a.rows, a.T, a.reverse);
+  resident_config<CS>(cfg, attr, 3 * (H / CS) / C * KS, (a.rows + R - 1) / R, stream);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_fwd_resident_kernel<H, CS, C, KS, R>, a.xp,
+                                       a.h0, a.wh, a.bh, a.out, a.h_last, a.rows, a.T, a.reverse);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -523,14 +516,26 @@ int trunet_gru_fwd(const void* x_proj, const void* h0, const void* wh, const voi
   return (int)dispatch_general<false>(rows_per_block, a, s);
 }
 
-// Clusters of the resident kernel that the current device holds at once, at
-// the most rows per tile built for H (256 or 512); -cudaError_t on failure.
+// To be called once per device before the cluster path (H = 256, 512) is
+// launched there: allows every instantiation of H its cluster size and
+// returns the fewest clusters of one the device holds at once (0: none can
+// be scheduled); -cudaError_t on failure.
 int trunet_gru_fwd_max_clusters(int H) {
-  int clusters = 0;
+  int fewest = 1 << 30;
   cudaError_t err = cudaErrorInvalidValue;
-  if (H == 256) err = resident_max_clusters<256, 8, 4, 8, 8>(&clusters);
-  if (H == 512) err = resident_max_clusters<512, 16, 4, 16, 4>(&clusters);
-  return err == cudaSuccess ? clusters : -(int)err;
+#define TRUNET_PREPARE(HH, CS, C, KS, RR)                      \
+  if (H == HH) {                                               \
+    int clusters = 0;                                          \
+    err = resident_prepare<HH, CS, C, KS, RR>(&clusters);      \
+    if (err != cudaSuccess) return -(int)err;                  \
+    if (clusters < fewest) fewest = clusters;                  \
+  }
+  TRUNET_PREPARE(256, 8, 4, 8, 1) TRUNET_PREPARE(256, 8, 4, 8, 2)
+  TRUNET_PREPARE(256, 8, 4, 8, 4) TRUNET_PREPARE(256, 8, 4, 8, 8)
+  TRUNET_PREPARE(512, 16, 4, 16, 1) TRUNET_PREPARE(512, 16, 4, 16, 2)
+  TRUNET_PREPARE(512, 16, 4, 16, 3) TRUNET_PREPARE(512, 16, 4, 16, 4)
+#undef TRUNET_PREPARE
+  return err == cudaSuccess ? fewest : -(int)err;
 }
 
 const char* trunet_cuda_error_string(int err) {

@@ -287,10 +287,13 @@ __global__ void gru_bwd_kernel(const float* __restrict__ g, const float* __restr
 // multiplied is written to device memory first.
 //
 // What bounds it on this card. At the flagship's training shapes it is 6.3
-// GFLOP over 329 MB (H = 64: bytes and float32 operations both ask ~0.1 ms)
-// and 25 GFLOP over 660 MB (H = 128: 0.38 ms of float32 FMAs, 0.2 ms of
-// bytes). A float32 SIMT product cannot reach the memory time at H = 128 and
-// barely at H = 64, so the product runs on the tensor cores.
+// GFLOP over 346 MB (H = 64) and 25 GFLOP over 685 MB (H = 128). As float32
+// FMAs outside the tensor cores (67 TFLOP/s) that is 0.09 and 0.38 ms of
+// operations against 0.10 and 0.20 ms of bytes at 3.35 TB/s, so a SIMT
+// product cannot reach the memory time at H = 128 and barely at H = 64. The
+// product therefore runs on the tensor cores, where its four instructions
+// per tile (two TF32 at 495 TFLOP/s, two bf16 at 989) ask 0.03 and 0.10 ms:
+// the floor of this kernel is the bytes, 0.10 and 0.20 ms.
 //
 // gru_dw_mma_kernel<H, CH, STAGES> (H = 64, 128; 16-byte aligned tensors).
 // - One block of 8 warps owns all H rows of dWh and a slab of 192 columns
@@ -315,8 +318,10 @@ __global__ void gru_bwd_kernel(const float* __restrict__ g, const float* __restr
 //   instruction per 16 row-steps where TF32 needs two (4 tensor-core
 //   instructions per 16 row-steps and tile instead of the 6 of 3xTF32);
 //   float32 accumulators. The corrections are 2^-11 of the product and bf16
-//   keeps 8 bits of them, so ~2^-19 per product is lost; against the plain
-//   version the sums are within 1e-5 of the largest entry. Fragments are read
+//   keeps 8 bits of them, so ~2^-19 per product is lost: this is not float32
+//   accuracy. Against the plain version the sums are within 1e-5 of the
+//   largest entry, where the float32 SIMT kernel is within 2e-6 (PERF.md has
+//   both against float64). Fragments are read
 //   from the staged rows as they lie (A = h_prev^T is "row" with m
 //   contiguous, B = d_hp is "col" with n contiguous); the rows are padded by
 //   8 words, so the 32 lanes of a fragment load hit 32 banks. A lane holds
@@ -331,8 +336,8 @@ __global__ void gru_bwd_kernel(const float* __restrict__ g, const float* __restr
 //   two blocks an SM; 56 bytes spilled), 88,064 bytes of dynamic shared
 //   memory; H = 128: 255 registers, no spill, 181,248 bytes.
 //
-// gru_dw_partial_kernel (any H): the float32 SIMT product of 64 x 64 output
-// tiles, 4 x 4 outputs a thread, 16 row-steps staged at a time.
+// gru_dw_partial_kernel (every other H): the float32 SIMT product of 64 x 64
+// output tiles, 4 x 4 outputs a thread, 16 row-steps staged at a time.
 
 constexpr int DW_TILE = 64;     // output tile: 64 rows k of dWh by 64 columns c
 constexpr int DW_CHUNK = 16;    // row-steps n staged in shared memory at a time
@@ -860,12 +865,13 @@ int trunet_gru_bwd(const void* g, const void* g_hT, const void* out, const void*
 }
 
 // Per-split partial sums of dWh and dbh into part (splits, H*3H + 3H);
-// splits * n_per_split must cover rows * T. path 0: the float32 SIMT kernel,
-// any H; path 1: the tensor-core kernel, H = 64 or 128, every tensor aligned
-// to 16 bytes, rows * T < 2^31.
+// splits * n_per_split must cover rows * T. H = 64 and 128 run the
+// tensor-core kernel, which needs every tensor aligned to 16 bytes and
+// rows * T < 2^31 (anything else is refused); any other H the float32 SIMT
+// kernel.
 int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, const void* saved,
                           void* part, int rows, int T, int H, int reverse, int splits,
-                          int n_per_split, int path, void* stream) {
+                          int n_per_split, void* stream) {
   if (rows < 1 || T < 1 || H < 1 || splits < 1 || n_per_split < 1 ||
       (long long)splits * n_per_split < (long long)rows * T)
     return (int)cudaErrorInvalidValue;
@@ -875,11 +881,10 @@ int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, con
   const float* svf = static_cast<const float*>(saved);
   float* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path == 1) {
+  if (H == 64 || H == 128) {
     const auto misaligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 != 0; };
-    if ((H != 64 && H != 128) || splits > 65535 || (long long)rows * T >= (1LL << 31) ||
-        misaligned(out) || misaligned(h0) || misaligned(d_xp) || misaligned(saved) ||
-        misaligned(part))
+    if (splits > 65535 || (long long)rows * T >= (1LL << 31) || misaligned(out) ||
+        misaligned(h0) || misaligned(d_xp) || misaligned(saved) || misaligned(part))
       return (int)cudaErrorInvalidValue;
     const dim3 grid(3 * H / MMA_BN, splits);
     if (H == 64)
@@ -888,7 +893,6 @@ int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, con
     return (int)launch_dw_mma<128, 3>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
                                       n_per_split, s);
   }
-  if (path != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((H + DW_TILE - 1) / DW_TILE, (3 * H + DW_TILE - 1) / DW_TILE, splits);
   gru_dw_partial_kernel<<<grid, DW_THREADS, 0, s>>>(outf, h0f, dxf, svf, pf, rows, T, H, reverse,
                                                     n_per_split);

@@ -13,9 +13,10 @@ bh (3H,); outputs (rows, T, H).
 - `gru_recurrence_bwd`: the BPTT, (d_xp, dWh, dbh, dh0). On a card it runs
   `bptt` (kernel `gru_bwd`: d_xp, dh0), then `dw_partial` and `dw_sum`
   (kernels `gru_dw_partial` and `gru_dw_sum`: dWh, dbh); these three take
-  CUDA tensors only. `gru_dw_partial` runs on the tensor cores (TF32 with
-  bf16 corrections, float32 accuracy) at H 64 and 128 and as a float32 SIMT
-  product otherwise (`dw_splits`).
+  CUDA tensors only. `gru_dw_partial` runs on the tensor cores at H 64 and
+  128 (TF32 with bf16 corrections: within 1e-5 of the largest entry, about
+  five times the error of a float32 product, PERF.md) and as a float32 SIMT
+  product at any other H (`dw_splits`).
 - `GRURecurrence`: a `torch.autograd.Function` over (x_proj, h0, wh, bh,
   reverse) whose forward is `gru_recurrence_train` and whose backward is
   `gru_recurrence_bwd`. The input projection and its gradients stay plain
@@ -108,7 +109,9 @@ def fwd_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int
     built for. One wave is four blocks an SM at H 64, one at H 128, and
     `max_clusters` clusters (what the card says it holds at once; by default
     the SMs over the cluster size). "general" is the kernel for every other
-    H, with `rows_per_block`.
+    H, with `rows_per_block`. T does not enter: on an H100 the resident kernel
+    was at least as fast as the general one at T 16 and at T 251 to 556, at
+    16 rows and at 16,064 (scripts/torch_gru_kernel_profile.py, PERF.md).
     """
     if hidden not in _RESIDENT:
         return FwdPlan("general", rows_per_block(rows, hidden, num_sms))
@@ -120,17 +123,15 @@ def fwd_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int
     return FwdPlan("cluster" if cluster > 1 else "registers", fits[0] if fits else tiles[-1])
 
 
-def dw_splits(steps: int, hidden: int, num_sms: int, tensor_cores: bool | None = None) -> tuple[int, int]:
+def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
     """(splits, row-steps per split) of the weight-gradient reduction over
     `steps` = rows * T, each split summing at least 256 row-steps.
 
-    About two blocks per SM either way. On the tensor cores (the default at
-    H 64 and 128) a block owns all H rows and 192 columns of dWh, and a split
-    is whole chunks of 32 row-steps; the SIMT kernel has 64 x 64 output tiles.
+    About two blocks per SM either way. On the tensor cores (H 64 and 128) a
+    block owns all H rows and 192 columns of dWh, and a split is whole chunks
+    of 32 row-steps; the SIMT kernel (any other H) has 64 x 64 output tiles.
     """
-    if tensor_cores is None:
-        tensor_cores = hidden in _DW_MMA_HIDDEN
-    if tensor_cores:
+    if hidden in _DW_MMA_HIDDEN:
         slabs = 3 * hidden // _DW_MMA_SLAB
         splits = max(1, min(-(-steps // _DW_MIN_STEPS), 2 * num_sms // slabs))
         per_split = -(-steps // (splits * _DW_MMA_CHUNK)) * _DW_MMA_CHUNK
@@ -161,7 +162,7 @@ def _train_lib() -> ctypes.CDLL:
     signatures = {
         "trunet_gru_fwd_train": [ptr] * 7 + [i32] * 5 + [ptr],
         "trunet_gru_bwd": [ptr] * 8 + [i32] * 5 + [ptr],
-        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 7 + [ptr],
+        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 6 + [ptr],
         "trunet_gru_dw_sum": [ptr] * 2 + [i32] * 2 + [ptr],
     }
     for name, argtypes in signatures.items():
@@ -238,8 +239,9 @@ def _num_sms(device: torch.device) -> int:
 @functools.cache
 def _max_clusters(device: torch.device, hidden: int) -> int | None:
     """Clusters of the resident kernel that `device` holds at once (H 256,
-    512); None where the kernel runs without clusters. Raises if the card
-    cannot schedule the cluster at all."""
+    512), asked once per device, which also allows the kernel its cluster
+    size there; None where the kernel runs without clusters. Raises if the
+    card cannot schedule the cluster at all."""
     if _RESIDENT.get(hidden, (1,))[0] == 1:
         return None
     lib = _lib()
@@ -275,8 +277,8 @@ def _launch(x_proj, h0, wh, bh, reverse, plan=None):
     h_last = torch.empty((rows, hidden), dtype=torch.float32, device=x_proj.device)
     if rows == 0:
         return out, h_last
-    plan = plan or fwd_plan(rows, steps, hidden, _num_sms(x_proj.device),
-                            _max_clusters(x_proj.device, hidden))
+    max_clusters = _max_clusters(x_proj.device, hidden)
+    plan = plan or fwd_plan(rows, steps, hidden, _num_sms(x_proj.device), max_clusters)
     lib = _lib()
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream()
@@ -383,8 +385,8 @@ def dw_partial(out, h0, d_xp, saved, reverse: bool = False) -> torch.Tensor:
 
 
 def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
-    """Launches `gru_dw_partial` on `plan` = (tensor cores?, splits, row-steps
-    per split); default: the tensor cores where they apply, and `dw_splits`."""
+    """Launches `gru_dw_partial` on `plan` = (splits, row-steps per split);
+    default: `dw_splits`."""
     global dw_partial_launches, last_dw_plan
     _require_card(out, "gru_dw_partial")
     rows, steps, hidden = out.shape
@@ -394,23 +396,26 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
     _check_shape("saved", saved, (rows, steps, 4 * hidden))
     if rows < 1 or steps < 1:
         raise ValueError(f"gru_dw_partial needs rows, T >= 1, got {rows}, {steps}")
-    if plan is None:
-        # the tensor-core kernel copies 16 bytes at a time
-        tensor_cores = hidden in _DW_MMA_HIDDEN and rows * steps < 2**31 and not any(
-            t.data_ptr() % 16 for t in (out, h0, d_xp, saved))
-        plan = (tensor_cores, *dw_splits(rows * steps, hidden, _num_sms(out.device), tensor_cores))
-    tensor_cores, splits, per_split = plan
+    tensor_cores = hidden in _DW_MMA_HIDDEN
+    if tensor_cores:
+        # the kernel copies 16 bytes at a time and indexes row-steps with an int
+        for name, t in (("out", out), ("h0", h0), ("d_xp", d_xp), ("saved", saved)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"gru_dw_partial at H={hidden} needs {name} aligned to 16 bytes")
+        if rows * steps >= 2**31:
+            raise ValueError(f"gru_dw_partial at H={hidden} takes rows * T < 2^31, got {rows * steps}")
+    splits, per_split = plan or dw_splits(rows * steps, hidden, _num_sms(out.device))
     part = torch.empty((splits, 3 * hidden * (hidden + 1)), dtype=torch.float32, device=out.device)
     lib = _train_lib()
     with torch.cuda.device(out.device):
         err = lib.trunet_gru_dw_partial(
             out.data_ptr(), h0.data_ptr(), d_xp.data_ptr(), saved.data_ptr(), part.data_ptr(),
-            rows, steps, hidden, int(reverse), splits, per_split, int(tensor_cores),
+            rows, steps, hidden, int(reverse), splits, per_split,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, f"gru_dw_partial {plan}", "trunet_gru_train_error_string")
+    last_dw_plan = (tensor_cores, splits, per_split)
+    _raise_on_error(lib, err, f"gru_dw_partial {last_dw_plan}", "trunet_gru_train_error_string")
     dw_partial_launches += 1
-    last_dw_plan = tuple(plan)
     return part
 
 
