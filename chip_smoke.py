@@ -17,9 +17,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. hold the training kernels (forward with residuals, BPTT, the two
    weight-gradient reduction kernels) against their plain versions at the
    flagship training step's three launch shapes (batch 64 of 2 s clips),
-   and time each beside its plain version, its bound and a PyTorch call
+   and time each, by device time under torch.profiler (in turns with the
+   PyTorch call, the lower of two readings) and by CUDA events around the
+   call, beside its plain version, its bound and a PyTorch call
    computing the same function (torch.nn.GRU forward and backward, a
-   matmul, a sum);
+   matmul, a sum); check that the BPTT ran on its resident path there
+   (timing the general kernel beside it) and that two sums of the same
+   partials give the same bits; hold the BPTT at one small ragged shape per
+   path and direction;
 5. drive the training path: the port's `train()` on config/proc16k.json in
    float32 (train_compute_dtype cleared, nothing else changed), batch 64 of
    2 s synthetic clips, 5 steps, with the launch counts set to 0 just before
@@ -127,6 +132,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, name: str | None = None, iters: int = 10) -> float:
+    """Mean device time in ms of the kernels whose name contains `name`
+    (default: every kernel) over `iters` calls of fn(), from torch.profiler:
+    the host's launch cost is left out, which CUDA events around a kernel of
+    a few microseconds would measure instead. The profiler has been seen to
+    return no kernel records now and then: such a reading is taken again, up
+    to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and (name is None or name in e.key))
+        if total > 0:
+            return total / iters / 1e3
+    raise AssertionError(f"torch.profiler saw no device time for {name or 'any kernel'}")
 
 
 def make_clip(seed: int = 0) -> np.ndarray:
@@ -272,26 +301,29 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return max_abs(a, b) / max(b.abs().max().item(), 1e-30)
 
 
-def torch_gru_train_ms(x_proj, h0, wh, bh, reverse, g, g_hT, want_out):
-    """(forward ms, backward ms, max abs error of its outputs) of
+def torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, want_out):
+    """(forward call, backward call, max abs error of its outputs) of
     torch.nn.GRU computing the same recurrence in training: cuDNN's training
     forward and its backward for upstream (g, g_hT). A yardstick the port
     never calls."""
     gru = torch_gru_module(wh, bh)
     xs = (x_proj.flip(1) if reverse else x_proj).detach().requires_grad_()
     h0l = h0[None].detach().requires_grad_()
-    fwd_ms = cuda_ms(lambda: gru(xs, h0l), 10)
     out_l, h_l = gru(xs, h0l)
     err = max_abs(out_l.flip(1) if reverse else out_l, want_out)
     grads = (g.flip(1) if reverse else g, g_hT[None])
     inputs = [xs, h0l, gru.weight_hh_l0, gru.bias_hh_l0]
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad((out_l, h_l), inputs, grads, retain_graph=True), 10)
-    return fwd_ms, bwd_ms, err
+    return (lambda: gru(xs, h0l),
+            lambda: torch.autograd.grad((out_l, h_l), inputs, grads, retain_graph=True), err)
 
 
 def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
     """Phase 4 at one launch shape: each training kernel against its plain
-    version on the same inputs, then timed. Returns one row per kernel."""
+    version on the same inputs, then timed: device time under torch.profiler
+    ("ms") and CUDA events around the wrapper's call ("call_ms"), the same
+    two for the PyTorch call, and for `gru_bwd` the device time of the
+    general kernel, which the shape does not take. Returns one row per
+    kernel."""
     device = torch.device("cuda")
     x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
     g = randn((rows, steps, hidden), seed + 100, device)
@@ -300,26 +332,35 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
     got = cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
     want = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
     out, _, saved = want
-    d_xp, dh0 = cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
-    p_dxp, p_dwh, p_dbh, p_dh0 = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    bwd_args = (g, g_hT, out, saved, h0, wh)
+    d_xp, dh0 = cuda_gru.bptt(*bwd_args, reverse=reverse)
+    bwd_plan = cuda_gru.last_bwd_plan
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    general = cuda_gru.BwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))
+    gd_xp, gdh0 = cuda_gru._launch_bwd(*bwd_args, reverse, plan=general)
+    p_dxp, p_dwh, p_dbh, p_dh0 = gru_ops.gru_recurrence_bwd(*bwd_args, reverse=reverse)
     part = cuda_gru.dw_partial(out, h0, p_dxp, saved, reverse=reverse)
     dw_plan = cuda_gru.last_dw_plan
     dwh, dbh = cuda_gru.dw_sum(part, hidden)
+    sum_plan = cuda_gru.last_sum_plan
+    dw_again = torch.cat([t.reshape(-1) for t in cuda_gru.dw_sum(part, hidden)])
     dw_sum_want = part.sum(dim=0)
     torch.cuda.synchronize()
+    dw_got = torch.cat([dwh.reshape(-1), dbh])
     errors = {
         "gru_fwd_train": max(max_abs(a, b) for a, b in zip(got, want)),
         "gru_bwd": max(max_abs(d_xp, p_dxp), max_abs(dh0, p_dh0)),
         "gru_dw_partial": max(max_abs(dwh, p_dwh), max_abs(dbh, p_dbh)),
-        "gru_dw_sum": max_abs(torch.cat([dwh.reshape(-1), dbh]), dw_sum_want),
+        "gru_dw_sum": max_abs(dw_got, dw_sum_want),
     }
+    general_err = max(max_abs(gd_xp, p_dxp), max_abs(gdh0, p_dh0))
     rel = {
         "gru_dw_partial": max(max_rel(dwh, p_dwh), max_rel(dbh, p_dbh)),
-        "gru_dw_sum": max_rel(torch.cat([dwh.reshape(-1), dbh]), dw_sum_want),
+        "gru_dw_sum": max_rel(dw_got, dw_sum_want),
     }
     finite = all(bool(torch.isfinite(t).all()) for t in (*got, d_xp, dh0, dwh, dbh))
 
-    fwd_lib, bwd_lib, lib_err = torch_gru_train_ms(x_proj, h0, wh, bh, reverse, g, g_hT, out)
+    fwd_lib, bwd_lib, lib_err = torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, out)
     hidden_prev = torch.cat([out[:, 1:], h0[:, None]], 1) if reverse else torch.cat([h0[:, None], out[:, :-1]], 1)
     hp_flat = hidden_prev.reshape(-1, hidden)
     dhp_flat = torch.cat([p_dxp[..., : 2 * hidden], p_dxp[..., 2 * hidden :] * saved[..., :hidden]], -1)
@@ -331,47 +372,87 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
             fwd_lib,
         ),
         "gru_bwd": (
-            lambda: cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse),
-            lambda: gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse),
+            lambda: cuda_gru.bptt(*bwd_args, reverse=reverse),
+            lambda: gru_ops.gru_recurrence_bwd(*bwd_args, reverse=reverse),
             bwd_lib,
         ),
         "gru_dw_partial": (
             lambda: cuda_gru.dw_partial(out, h0, p_dxp, saved, reverse=reverse),
             lambda: gru_ops.gru_weight_grads(out, h0, p_dxp, saved, reverse),
-            cuda_ms(lambda: torch.matmul(hp_flat.T, dhp_flat), 10),
+            lambda: torch.matmul(hp_flat.T, dhp_flat),
         ),
         "gru_dw_sum": (
             lambda: cuda_gru.dw_sum(part, hidden),
             lambda: part.sum(dim=0),
-            cuda_ms(lambda: torch.sum(part, dim=0), 10),
+            lambda: torch.sum(part, dim=0),
         ),
     }
     rows_out = []
-    for kernel, (run, plain, library_ms) in timing.items():
+    for kernel, (run, plain, library) in timing.items():
         nbytes, flops = train_kernel_work(kernel, rows, steps, hidden, part.shape[0])
         bound_ms, bound_by = bound(nbytes, flops, tensor_cores=kernel == "gru_dw_partial" and dw_plan[0])
+        # kernel and PyTorch call in turns, the lower of two readings each
+        kernel_ms, library_ms = zip(*((device_ms(run), device_ms(library)) for _ in range(2)))
         row = {
             "kernel": kernel, "shape": name, "rows": rows, "T": steps, "H": hidden,
             "reverse": reverse, "max_abs_err": errors[kernel], "max_rel_err": rel.get(kernel),
-            "ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 2, 1), "library_ms": library_ms,
+            "ms": min(kernel_ms), "call_ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 2, 1),
+            "library_ms": min(library_ms), "library_call_ms": cuda_ms(library, 10),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         }
         if kernel == "gru_fwd_train":
             row["library_max_abs_err"] = lib_err
+        if kernel == "gru_bwd":
+            row["path"], row["rows_per_tile"] = bwd_plan
+            row["general_ms"] = device_ms(lambda: cuda_gru._launch_bwd(*bwd_args, reverse, plan=general))
+            row["general_rows_per_block"], row["general_max_abs_err"] = general.rows_per_tile, general_err
         if kernel == "gru_dw_partial":
             row["path"] = "tensor_cores" if dw_plan[0] else "simt"
             row["splits"], row["steps_per_split"] = dw_plan[1:]
+        if kernel == "gru_dw_sum":
+            row["cols"], row["groups"] = sum_plan
+            row["bit_identical"] = bool(torch.equal(dw_got, dw_again))
         log(f"[train-kernel] {json.dumps(row)}")
         rows_out.append(row)
     if not finite:
         raise AssertionError(f"training kernels {name}: non-finite output")
-    for kernel in ("gru_fwd_train", "gru_bwd"):
-        if errors[kernel] > KERNEL_ATOL:
-            raise AssertionError(f"{kernel} {name}: max abs err {errors[kernel]:.3e} > {KERNEL_ATOL:.0e}")
+    if bwd_plan.path != "registers":
+        raise AssertionError(f"gru_bwd {name}: ran on the {bwd_plan.path} path, expected registers")
+    for kernel, err in (("gru_fwd_train", errors["gru_fwd_train"]), ("gru_bwd", errors["gru_bwd"]),
+                        ("gru_bwd general", general_err)):
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"{kernel} {name}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
     for kernel, value in rel.items():
         if value > DW_RTOL:
             raise AssertionError(f"{kernel} {name}: max rel err {value:.3e} > {DW_RTOL:.0e}")
+    if not torch.equal(dw_got, dw_again):
+        raise AssertionError(f"gru_dw_sum {name}: two calls on the same partials differ")
     return rows_out
+
+
+def check_bwd_shape(name, path, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
+    """Phase 4 at a small ragged shape: `gru_bwd` against its plain version,
+    on `path`."""
+    device = torch.device("cuda")
+    x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
+    g = randn((rows, steps, hidden), seed + 100, device)
+    g_hT = randn((rows, hidden), seed + 200, device)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    d_xp, dh0 = cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    plan = cuda_gru.last_bwd_plan
+    p_dxp, _, _, p_dh0 = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    torch.cuda.synchronize()
+    err = max(max_abs(d_xp, p_dxp), max_abs(dh0, p_dh0))
+    row = {"kernel": "gru_bwd", "shape": name, "rows": rows, "T": steps, "H": hidden, "reverse": reverse,
+           "path": plan.path, "rows_per_tile": plan.rows_per_tile, "max_abs_err": err}
+    log(f"[train-kernel] {json.dumps(row)}")
+    if plan.path != path:
+        raise AssertionError(f"gru_bwd {name}: ran on the {plan.path} path, expected {path}")
+    if rows % plan.rows_per_tile == 0 or steps % 2 == 0:
+        raise AssertionError(f"gru_bwd {name} is not ragged: {row}")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"gru_bwd {name}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
+    return row
 
 
 def float32_training(cfg):
@@ -643,6 +724,18 @@ def main() -> int:
         for seed, (name, r, t, h, rev) in enumerate(train_shapes)
         for row in check_train_kernels(name, r, t, h, rev, 10 + seed, cuda_gru, gru_ops)
     ]
+    # gru_bwd at rows not a multiple of the row tile and T odd, both
+    # directions, on each path
+    ragged_bwd_shapes = [
+        (path, r, t, h, rev)
+        for path, r, t, h in (("registers", 1001, 13, 64), ("registers", 133, 7, 128), ("general", 301, 9, 40))
+        for rev in (False, True)
+    ]
+    ragged_bwd = [
+        check_bwd_shape(f"ragged_{path}_h{h}_{'rev' if rev else 'fwd'}", path, r, t, h, rev, 40 + i,
+                        cuda_gru, gru_ops)
+        for i, (path, r, t, h, rev) in enumerate(ragged_bwd_shapes)
+    ]
 
     # 5. the training path
     train_summary, train_counts = train_main_path(train_cfg, cuda_gru)
@@ -672,7 +765,7 @@ def main() -> int:
     }
     for name, site in replaces.items():
         mine = [r for r in train_rows if r["kernel"] == name]  # one train step's three launches
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": "tinyrecurrentunet_torch/ops/csrc/gru_train.cu",
@@ -683,13 +776,22 @@ def main() -> int:
             # their tolerance is relative (DW_RTOL)
             "max_rel_err": max((r["max_rel_err"] for r in mine if r["max_rel_err"] is not None),
                                default=None),
+            # device time (torch.profiler), the PyTorch call's too; call_ms
+            # by CUDA events around the wrapper
             "ms": sum(r["ms"] for r in mine),
+            "call_ms": sum(r["call_ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations",
             "library_ms": sum(r["library_ms"] for r in mine),
             "shapes": mine,
-        })
+        }
+        if name == "gru_bwd":
+            entry["max_abs_err"] = max(r["max_abs_err"] for r in mine + ragged_bwd)
+            entry["general_ms"] = sum(r["general_ms"] for r in mine)
+            entry["paths"] = sorted({r["path"] for r in mine + ragged_bwd})
+            entry["ragged_shapes"] = ragged_bwd
+        kernels.append(entry)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

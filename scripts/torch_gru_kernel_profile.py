@@ -1,22 +1,26 @@
-"""Sweeps the launch plans of the port's `gru_fwd` and `gru_dw_partial`
-kernels on the card, at the shapes the flagship and large16k give them in
-serving (batch 1, a 4 s clip) and in evaluation and training at batch 64 of
-2 s clips.
+"""Sweeps the launch plans of the port's `gru_fwd`, `gru_dw_partial`,
+`gru_bwd` and `gru_dw_sum` kernels on the card, at the shapes the flagship
+and large16k give them in serving (batch 1, a 4 s clip), in evaluation and
+training at batch 64 of 2 s clips, and (`gru_bwd`, `gru_dw_sum`) in training
+at batch 8.
 
-    python scripts/torch_gru_kernel_profile.py [--only fwd|dw] [--iters 20]
+    python scripts/torch_gru_kernel_profile.py [--only fwd|dw|bwd] [--iters 20]
 
-For every shape and every plan (path and rows per tile for `gru_fwd`, so
-every instantiation the library builds is launched; splits for
-`gru_dw_partial`) it prints one JSON line: the error against the plain
-PyTorch version on the same inputs, the errors of both against the plain
-version in float64, the kernel's time by CUDA events (for `gru_fwd` also its
-device time under torch.profiler, which leaves the host's launch cost out),
+For every shape and every plan (path and rows per tile for `gru_fwd` and
+`gru_bwd`, so every instantiation the library builds is launched; splits
+for `gru_dw_partial`; words and lanes a block for `gru_dw_sum`) it prints
+one JSON line: the error against the plain PyTorch version on the same
+inputs, the errors of both against the plain version in float64, the
+kernel's time by CUDA events and (`gru_fwd`, `gru_bwd`, `gru_dw_sum`) its
+device time under torch.profiler, which leaves the host's launch cost out,
 and the time of the PyTorch call that computes the same function
-(torch.nn.GRU, torch.matmul on operands made beforehand). The plan that
-`fwd_plan` / `dw_splits` choose is marked "chosen". The build log (ptxas
-registers and spills) comes first. Fails if any plan misses chip_smoke.py's
-tolerance against the plain version (KERNEL_ATOL, DW_RTOL). Needs a CUDA
-card and nvcc.
+(torch.nn.GRU and its backward, torch.matmul on operands made beforehand,
+torch.sum). `gru_dw_sum` also says whether two calls gave the same bits.
+The plan that `fwd_plan` / `dw_splits` / `bwd_plan` / `sum_plan` choose is
+marked "chosen". The build log (ptxas registers and spills) comes first.
+Fails if any plan misses chip_smoke.py's tolerance against the plain
+version (KERNEL_ATOL, DW_RTOL) or `gru_dw_sum` differs between two calls.
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import (DW_RTOL, KERNEL_ATOL, cuda_ms, gru_inputs, max_abs, max_rel,  # noqa: E402
-                        nvidia_smi_line, randn, torch_gru_same_function)
+from chip_smoke import (DW_RTOL, KERNEL_ATOL, cuda_ms, device_ms, gru_inputs, max_abs,  # noqa: E402
+                        max_rel, nvidia_smi_line, randn, torch_gru_same_function, torch_gru_train_calls)
 from tinyrecurrentunet_torch.ops import build, cuda_gru  # noqa: E402
 from tinyrecurrentunet_torch.ops import gru as gru_ops  # noqa: E402
 
@@ -55,21 +59,11 @@ DW_SHAPES = [
     ("train_fgru_rev", 16064, 16, 64, True),
     ("train_tgru", 1024, 251, 128, False),
 ]
-
-
-def device_ms(fn, name: str, iters: int = 10) -> float:
-    """Mean device time in ms of the kernels whose name contains `name`
-    over `iters` calls of fn(), from torch.profiler (no host overhead)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
-    return total / iters / 1e3
+# the training shapes, and the same at batch 8 of 2 s clips
+BWD_SHAPES = DW_SHAPES + [
+    ("train8_fgru_fwd", 2008, 16, 64, False),
+    ("train8_tgru", 128, 251, 128, False),
+]
 
 
 def sweep_fwd(iters: int, num_sms: int) -> list[str]:
@@ -153,9 +147,73 @@ def sweep_dw(iters: int, num_sms: int) -> list[str]:
     return failures
 
 
+def sweep_bwd(iters: int, num_sms: int) -> list[str]:
+    """Every instantiation of `gru_bwd` (the general kernel at its
+    rows_per_block, the resident one at every rows per tile built), then
+    `gru_dw_sum` over the partials of the same shape at several plans."""
+    device = torch.device("cuda")
+    failures = []
+    for seed, (name, rows, steps, hidden, reverse) in enumerate(BWD_SHAPES):
+        x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, 10 + seed, device)
+        g = randn((rows, steps, hidden), 110 + seed, device)
+        g_hT = randn((rows, hidden), 210 + seed, device)
+        out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+        bwd_args = (g, g_hT, out, saved, h0, wh)
+        want = gru_ops.gru_recurrence_bwd(*bwd_args, reverse=reverse)
+        want64 = gru_ops.gru_recurrence_bwd(*(a.double() for a in bwd_args), reverse=reverse)
+        plain_err64 = max(max_abs(want[i].double(), want64[i]) for i in (0, 3))
+        library_ms = device_ms(torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, out)[1], iters=iters)
+        chosen = cuda_gru.bwd_plan(rows, steps, hidden, num_sms)
+        plans = [cuda_gru.BwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))]
+        plans += [cuda_gru.BwdPlan("registers", r) for r in cuda_gru._BWD_RESIDENT[hidden][1]]
+        for plan in plans:
+            def run():
+                return cuda_gru._launch_bwd(*bwd_args, reverse, plan=plan)
+
+            d_xp, dh0 = run()
+            torch.cuda.synchronize()
+            err = max(max_abs(d_xp, want[0]), max_abs(dh0, want[3]))
+            print(json.dumps({
+                "kernel": "gru_bwd", "shape": name, "rows": rows, "T": steps, "H": hidden, "reverse": reverse,
+                **plan._asdict(), "chosen": plan == chosen, "max_abs_err": err,
+                "max_abs_err_vs_float64": max(max_abs(d_xp.double(), want64[0]), max_abs(dh0.double(), want64[3])),
+                "plain_abs_err_vs_float64": plain_err64,
+                "device_ms": device_ms(run, "gru_bwd", iters), "ms": cuda_ms(run, iters),
+                "library_device_ms": library_ms}), flush=True)
+            if not err <= KERNEL_ATOL:
+                failures.append(f"gru_bwd {name} {plan}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
+
+        part = cuda_gru.dw_partial(out, h0, want[0], saved, reverse=reverse)
+        splits, size = part.shape
+        sum_want, sum_want64 = part.sum(dim=0), part.double().sum(dim=0)
+        library_ms = device_ms(lambda: torch.sum(part, dim=0), iters=iters)
+        chosen = cuda_gru.sum_plan(splits, size, num_sms)
+        plans = [chosen] + [p for p in (cuda_gru.SumPlan(c, threads // c) for threads in (256, 128)
+                                        for c in (8, 16, 32, 64, 128) if threads // c <= 32) if p != chosen]
+        for plan in plans:
+            def run():
+                return cuda_gru._launch_sum(part, hidden, plan=plan)
+
+            first, second = (torch.cat([dwh.reshape(-1), dbh]) for dwh, dbh in (run(), run()))
+            torch.cuda.synchronize()
+            err = max_rel(first, sum_want)
+            same = bool(torch.equal(first, second))
+            print(json.dumps({
+                "kernel": "gru_dw_sum", "shape": name, "H": hidden, "splits": splits, "size": size,
+                **plan._asdict(), "chosen": plan == chosen, "max_rel_err": err,
+                "max_rel_err_vs_float64": max_rel(first.double(), sum_want64),
+                "plain_rel_err_vs_float64": max_rel(sum_want.double(), sum_want64), "bit_identical": same,
+                "device_ms": device_ms(run, "gru_dw_sum", iters), "ms": cuda_ms(run, iters),
+                "library_device_ms": library_ms, "library_ms": cuda_ms(lambda: torch.sum(part, dim=0), iters)}),
+                flush=True)
+            if not err <= DW_RTOL or not same:
+                failures.append(f"gru_dw_sum {name} {plan}: max rel err {err:.3e}, bit-identical {same}")
+    return failures
+
+
 def main():
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", choices=("fwd", "dw"))
+    parser.add_argument("--only", choices=("fwd", "dw", "bwd"))
     parser.add_argument("--iters", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -167,10 +225,12 @@ def main():
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(nvidia_smi_line(), flush=True)
     failures = []
-    if args.only != "dw":
+    if args.only in (None, "fwd"):
         failures += sweep_fwd(args.iters, num_sms)
-    if args.only != "fwd":
+    if args.only in (None, "dw"):
         failures += sweep_dw(args.iters, num_sms)
+    if args.only in (None, "bwd"):
+        failures += sweep_bwd(args.iters, num_sms)
     if failures:
         sys.exit("\n".join(failures))
 

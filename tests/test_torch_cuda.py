@@ -247,3 +247,75 @@ def test_train_state_on_card_turns_tf32_off(card):
     torch.backends.cudnn.allow_tf32 = True
     create_train_state(cfg, device=card)
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden,rows_per_tile", [
+    (hidden, r) for hidden, (_, tiles, _) in cuda_gru._BWD_RESIDENT.items() for r in tiles])
+def test_every_resident_bwd_instantiation(card, hidden, rows_per_tile, reverse):
+    """Every (H, rows per tile) of the resident BPTT, on a ragged last tile,
+    T odd, and more tiles than the blocks the card holds, so that blocks
+    walk several tiles."""
+    per_sm = cuda_gru._BWD_RESIDENT[hidden][0]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rows, steps = (per_sm * sms + 3) * rows_per_tile + 1, 5
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, hidden + rows_per_tile, card)
+    g, g_hT = _grads(rows, steps, hidden, hidden + rows_per_tile, card)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    before = cuda_gru.bwd_launches
+    d_xp, dh0 = cuda_gru._launch_bwd(g, g_hT, out, saved, h0, wh, reverse,
+                                     plan=cuda_gru.BwdPlan("registers", rows_per_tile))
+    torch.cuda.synchronize()
+    assert cuda_gru.bwd_launches == before + 1
+    want = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    torch.testing.assert_close(d_xp, want[0], rtol=0, atol=ATOL)
+    torch.testing.assert_close(dh0, want[3], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows,steps,hidden,path", [
+    (16064, 16, 64, "registers"),  # flagship training shapes at batch 64
+    (1024, 251, 128, "registers"),
+    (1001, 13, 64, "registers"),   # ragged rows and T
+    (133, 7, 128, "registers"),
+    (301, 9, 40, "general"),
+    (16, 0, 64, "registers"),      # no step: dh0 = g_hT
+])
+def test_bwd_path_matches_plain_version(card, rows, steps, hidden, path, reverse):
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
+    g, g_hT = _grads(rows, steps, hidden, rows + steps, card)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    d_xp, dh0 = cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    torch.cuda.synchronize()
+    assert cuda_gru.last_bwd_plan.path == path
+    want = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    torch.testing.assert_close(d_xp, want[0], rtol=0, atol=ATOL)
+    torch.testing.assert_close(dh0, want[3], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("splits,hidden", [
+    (1, 33),    # one split; 3,366 entries, not a multiple of 4
+    (5, 33),
+    (1, 64),
+    (260, 64),  # the flagship's splits
+    (132, 128),
+    (37, 8),
+])
+def test_dw_sum_matches_sum_and_is_bit_identical(card, splits, hidden):
+    size = 3 * hidden * (hidden + 1)
+    part = torch.from_numpy(np.random.default_rng(splits).standard_normal((splits, size)).astype(np.float32)).to(card)
+    before = cuda_gru.dw_sum_launches
+    first = torch.cat([t.reshape(-1) for t in cuda_gru.dw_sum(part, hidden)])
+    second = torch.cat([t.reshape(-1) for t in cuda_gru.dw_sum(part, hidden)])
+    torch.cuda.synchronize()
+    assert cuda_gru.dw_sum_launches == before + 2
+    assert torch.equal(first, second)
+    assert _rel(first, part.sum(dim=0)) <= 1e-4
+
+
+def test_dw_sum_refuses_misaligned_part_on_card(card):
+    flat = torch.zeros(2 * 60 + 1, device=card)
+    before = cuda_gru.dw_sum_launches
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        cuda_gru.dw_sum(flat[1:].view(2, 60), 4)
+    assert cuda_gru.dw_sum_launches == before

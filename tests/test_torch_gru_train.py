@@ -176,3 +176,51 @@ def test_dw_splits(steps, hidden, expect):
     splits, per_split = cuda_gru.dw_splits(steps, hidden, 132)
     assert (splits, per_split) == expect
     assert splits * per_split >= steps > (splits - 1) * per_split
+
+
+@pytest.mark.parametrize("rows,steps,hidden,expect", [
+    # Wh in registers (H 64: four blocks an SM, H 128: one): the fewest rows a
+    # tile that keep one wave, at most 2 at H 64 and 4 at H 128
+    (16064, 16, 64, ("registers", 2)),   # flagship FGRU at batch 64: 8,032 tiles
+    (1024, 251, 128, ("registers", 4)),  # flagship TGRU at batch 64: 256 tiles, two waves
+    (2008, 16, 64, ("registers", 2)),    # FGRU at batch 8
+    (500, 16, 64, ("registers", 1)),     # 500 tiles of one row: one wave of 528
+    (128, 251, 128, ("registers", 1)),   # TGRU at batch 8
+    (133, 7, 128, ("registers", 2)),
+    (1001, 13, 64, ("registers", 2)),
+    (1, 1, 64, ("registers", 1)),
+    # the general kernel (any other H), rows_per_block
+    (301, 9, 40, ("general", 4)),
+    (16064, 16, 256, ("general", 8)),  # large16k FGRU: H * rows <= 2048
+    (3, 1, 8, ("general", 1)),
+])
+def test_bwd_plan(rows, steps, hidden, expect):
+    assert tuple(cuda_gru.bwd_plan(rows, steps, hidden, 132)) == expect
+
+
+@pytest.mark.parametrize("splits,size,expect", [
+    (260, 12480, (8, 32)),   # flagship FGRU at batch 64: 390 blocks of 256 threads
+    (132, 49536, (32, 8)),   # flagship TGRU at batch 64: 387 blocks
+    (22, 49536, (32, 8)),    # fewer splits of the TGRU's size
+    (4, 12480, (8, 4)),      # few splits: four lanes a word, one warp a block
+    (126, 12480, (8, 32)),   # batch 8
+    (1, 3366, (32, 1)),      # one split, a size not a multiple of 4
+    (1, 60, (32, 1)),
+    (3, 60, (16, 2)),
+])
+def test_sum_plan(splits, size, expect):
+    plan = cuda_gru.sum_plan(splits, size, 132)
+    assert tuple(plan) == expect
+    threads = plan.cols * plan.groups
+    assert threads % 32 == 0 and threads <= 256 and plan.groups <= splits
+
+
+def test_dw_sum_refuses_a_misaligned_part_without_launching():
+    """gru_dw_sum reads 16 bytes at a time: a part off a 16-byte boundary
+    raises before anything is launched (checked before the device)."""
+    flat = torch.zeros(2 * 60 + 1)
+    part = flat[1:].view(2, 60)  # 4 bytes off the boundary
+    before = cuda_gru.launch_counts()
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        cuda_gru.dw_sum(part, 4)
+    assert cuda_gru.launch_counts() == before

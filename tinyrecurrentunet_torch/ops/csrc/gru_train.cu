@@ -6,13 +6,16 @@
 //
 // Replaces the TPU kernels of tinyrecurrentunet_tpu/ops/pallas_gru_vjp.py:
 //   `_fwd_kernel` -> gru_fwd_train_kernel
-//   `_bwd_kernel` -> gru_bwd_kernel (d_xp, the dh carry, dh0)
-//                    + gru_dw_partial_kernel + gru_dw_sum_kernel (dWh, dbh)
+//   `_bwd_kernel` -> gru_bwd_resident_kernel (H = 64, 128) or gru_bwd_kernel
+//                    (d_xp, the dh carry, dh0)
+//                    + gru_dw_mma_kernel (H = 64, 128) or gru_dw_partial_kernel
+//                    + gru_dw_sum_kernel (dWh, dbh)
 // The TPU kernel sums dWh and dbh over rows and time in VMEM scratch as its
 // sequential grid walks. Blocks on the card run in parallel, so the sum is a
 // kernel of its own: per-block partials over a fixed split of the row-steps
 // (on the tensor cores at H = 64 and 128, see the reduction section), then a
-// sum over the splits in a fixed order. The result is deterministic.
+// sum over the splits in an order fixed by the shapes. The result is
+// bit-identical run to run.
 //
 // Math per step (gate order r, z, n as torch.nn.GRU; bh inside r * hn):
 //   hp = h_prev @ Wh + bh;  r = sigmoid(xr + hr);  z = sigmoid(xz + hz)
@@ -33,17 +36,49 @@
 // walked before it (t-1, or t+1 for reverse) or h0; no shifted copy is made.
 //
 // What bounds it on this card. The two recurrences are a serial chain of T
-// dependent steps, each an H- or 3H-long dot product per thread out of
-// shared memory and one barrier; bytes and FLOPs are far from their bounds
-// (PERF.md). Design as the general kernel of gru_fwd.cu: one block owns 1-8
-// rows and walks all T steps, thread j owns hidden unit j; Wh sits in dynamic shared memory when
+// dependent steps, each a product of a row tile with Wh (forward) or Wh^T
+// (BPTT) and one barrier. At the flagship's FGRU (16,064 rows, T 16, H 64)
+// there are enough rows to fill the card, so the BPTT's bound is its bytes
+// (592 MB, 0.18 ms); at its TGRU (1,024 rows, T 251, H 128) the operations
+// (25 GFLOP of float32 FMAs, 0.39 ms), and the serial chain of 251 steps.
+//
+// gru_fwd_train_kernel<RPT, WH_SMEM> and gru_bwd_kernel<RPT, WH_SMEM> (path
+// "general" of the BPTT, any 1 <= H <= 1024; the forward's only path), as
+// the general kernel of gru_fwd.cu: one block owns 1-8 rows and walks all T
+// steps, thread j owns hidden unit j; Wh sits in dynamic shared memory when
 // it fits (48 KB at H=64, 192 KB at H=128), the backward holds it
-// transposed so that thread j reads column j without bank conflicts. The
-// next step's inputs are loaded before the current step's product. The
-// weight-gradient reduction is a product of (H, N) by (N, 3H), N = rows * T,
-// described at its section below.
-// Making the recurrences fast is later work: Wh resident in registers and the
-// BPTT of a row tile split over a cluster, as gru_fwd.cu does for inference.
+// transposed so that thread j reads column j. Each FMA needs a shared load.
+// The next step's inputs are loaded before the current step's product.
+//
+// gru_bwd_resident_kernel<H, C, KS, R> (path "registers" of the BPTT, H =
+// 64 and 128, chosen by `bwd_plan` in cuda_gru.py), the design of
+// gru_fwd.cu's resident kernel carried over to the transposed product
+// carry = dh z + d_hp @ Wh^T, a contraction over 3H to H outputs:
+// - Wh stays in registers for the whole call. A group of KS = 8 lanes owns
+//   C = 4 output units; lane ks holds the words of their rows of Wh for the
+//   3H columns c with (c / 4) % KS == ks: 4 * 3H / 8 registers (96 at H 64,
+//   192 at H 128), loaded once a block. Blocks stay on the card (grid: the
+//   blocks it holds at once) and walk row tile after row tile.
+// - d_hp of the tile is double-buffered in shared memory; a lane reads it as
+//   float4 words and feeds each word to C FMA chains, four units per shared
+//   load. The KS partial sums of a unit meet by __shfl_xor_sync (one
+//   butterfly, then a transposing reduction that leaves unit ks % C with
+//   lane ks and its twin ks ^ 4).
+// - Each (row, unit) element's gate derivatives are applied once, by the
+//   lane of its unit whose twin index ks / C equals row % 2, which keeps the
+//   carry and dh z of its elements in registers. That lane fetches the next
+//   step's g, r, z, n, hn and h_prev for its elements with 4-byte cp.async
+//   copies into its own slots of shared memory before the product, so they
+//   land while it runs and hold no registers; one barrier a step.
+// - `nvcc -Xptxas -v` (sm_90a, CUDA 12.8): H 64 (128 threads, four blocks an
+//   SM): 126 / 128 / 128 registers at 1 / 2 / 4 rows a tile (16 bytes
+//   spilled at 4); H 128 (256 threads, one block an SM): 231 / 235 / 245, no
+//   spill. Dynamic shared memory 8 * R * 3H + 48 * R * H bytes: 4.6 / 9.2 / 18
+//   KB at H 64, 9.2 / 18 / 37 KB at H 128. Built at 1, 2 and 4 rows a tile;
+//   8 rows spilled 76 bytes at H 64 and ran slower at both H.
+//
+// The weight-gradient reduction is a product of (H, N) by (N, 3H), N = rows
+// * T, then a sum over its splits, described at their sections below.
 
 #include <cuda_runtime.h>
 
@@ -272,6 +307,187 @@ __global__ void gru_bwd_kernel(const float* __restrict__ g, const float* __restr
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     if (valid[r]) dh0[(size_t)(row0 + r) * H + j] = carry[r];
+  }
+}
+
+// ---- the BPTT with Wh resident in registers (H = 64, 128)
+
+// 4-byte asynchronous copy global -> shared (no registers held while in flight).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int H, int R>
+constexpr size_t bwd_resident_smem_bytes() {
+  // d_hp of the tile [2][R][3H] + the step inputs of the tile [2][6][R][H]
+  return (size_t)(2 * R * 3 * H + 2 * 6 * R * H) * sizeof(float);
+}
+
+// grid: min(row tiles, the blocks the card holds at once); a block walks the
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... (Wh is loaded once).
+template <int H, int C, int KS, int R>
+__global__ void __launch_bounds__(H / C * KS, H == 64 ? 4 : 1)
+    gru_bwd_resident_kernel(const float* __restrict__ g, const float* __restrict__ g_hT,
+                            const float* __restrict__ out, const float* __restrict__ saved,
+                            const float* __restrict__ h0, const float* __restrict__ wh,
+                            float* __restrict__ d_xp, float* __restrict__ dh0, int rows, int T,
+                            int reverse) {
+  constexpr int G = 3 * H;
+  constexpr int NT = H / C * KS;      // threads: KS lanes for every C output units
+  constexpr int KI = G / (4 * KS);    // float4 words of a d_hp row a lane reads
+  constexpr int OWN = KS / C;         // lane sets holding each finished unit
+  constexpr int RO = (R + OWN - 1) / OWN;  // (row, unit) elements a lane owns
+  constexpr int IN = 6 * R * H;       // one stage of step inputs
+  static_assert(G % (4 * KS) == 0 && KS % C == 0 && 32 % KS == 0 && NT % 32 == 0, "shape");
+  extern __shared__ __align__(16) float bsm[];
+  float* dbuf = bsm;              // [2][R][3H] d_hp of the step
+  float* inb = bsm + 2 * R * G;   // [2][6][R][H] g, r, z, n, hn, h_prev of the step
+
+  const int tid = threadIdx.x;
+  const int ks = tid % KS;
+  const int u0 = (tid / KS) * C;  // first output unit of the lane group
+  const int u = u0 + ks % C;      // the unit this lane holds after the reduction
+  const int set = ks / C;         // it owns rows r with r % OWN == set
+
+  // w[c][4 i + q] = Wh[u0 + c, (i * KS + ks) * 4 + q]: row u0 + c of Wh is
+  // column u0 + c of Wh^T
+  float w[C][4 * KI];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[c][4 * i + q] = wh[(size_t)(u0 + c) * G + (i * KS + ks) * 4 + q];
+    }
+  }
+
+  const int tiles = (rows + R - 1) / R;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * R;
+    // the inputs of step s of this lane's elements into stage s & 1
+    const auto fetch = [&](int s) {
+      const int t = reverse ? s : T - 1 - s;
+      const int tp = reverse ? t + 1 : t - 1;  // the step the forward walked before t
+      float* st = inb + (s & 1) * IN;
+#pragma unroll
+      for (int e = 0; e < RO; ++e) {
+        const int r = e * OWN + set;
+        if (r >= R || row0 + r >= rows) continue;
+        const size_t rt = (size_t)(row0 + r) * T + t;
+        const float* sv = saved + rt * 4 * H;
+        float* d = st + r * H + u;
+        cp_async4(d, g + rt * H + u);
+        cp_async4(d + R * H, sv + u);
+        cp_async4(d + 2 * R * H, sv + H + u);
+        cp_async4(d + 3 * R * H, sv + 2 * H + u);
+        cp_async4(d + 4 * R * H, sv + 3 * H + u);
+        cp_async4(d + 5 * R * H, (tp < 0 || tp >= T) ? h0 + (size_t)(row0 + r) * H + u
+                                                     : out + ((size_t)(row0 + r) * T + tp) * H + u);
+      }
+      cp_async_commit();
+    };
+
+    float carry[RO], dhz[RO];
+#pragma unroll
+    for (int e = 0; e < RO; ++e) {
+      const int r = e * OWN + set;
+      carry[e] = (r < R && row0 + r < rows) ? g_hT[(size_t)(row0 + r) * H + u] : 0.0f;
+      dhz[e] = 0.0f;
+    }
+    if (T > 0) fetch(0);
+
+    for (int s = 0; s < T; ++s) {
+      const int t = reverse ? s : T - 1 - s;
+      float* dhp = dbuf + (s & 1) * R * G;
+      const float* st = inb + (s & 1) * IN;
+      cp_async_wait_all();  // this lane's inputs of step s have landed
+      // each element's gates, once, by the lane that owns it
+#pragma unroll
+      for (int e = 0; e < RO; ++e) {
+        const int r = e * OWN + set;
+        if (r >= R) continue;
+        const bool valid = row0 + r < rows;
+        const float* in = st + r * H + u;
+        const float gg = valid ? in[0] : 0.0f;
+        const float rg = valid ? in[R * H] : 0.0f;
+        const float zg = valid ? in[2 * R * H] : 0.0f;
+        const float ng = valid ? in[3 * R * H] : 0.0f;
+        const float hn = valid ? in[4 * R * H] : 0.0f;
+        const float hp = valid ? in[5 * R * H] : 0.0f;
+        const float dh = carry[e] + gg;
+        const float dz = dh * (hp - ng) * zg * (1.0f - zg);
+        const float dn = dh * (1.0f - zg) * (1.0f - ng * ng);
+        const float dr = dn * hn * rg * (1.0f - rg);
+        dhp[r * G + u] = dr;
+        dhp[r * G + H + u] = dz;
+        dhp[r * G + 2 * H + u] = dn * rg;
+        if (valid) {
+          float* dx = d_xp + ((size_t)(row0 + r) * T + t) * G;
+          dx[u] = dr;
+          dx[H + u] = dz;
+          dx[2 * H + u] = dn;
+        }
+        dhz[e] = dh * zg;
+      }
+      if (s + 1 < T) fetch(s + 1);  // lands while the product runs
+      __syncthreads();
+
+      // carry = dh z + d_hp @ Wh^T, one row of the tile at a time
+      const float4* d4 = reinterpret_cast<const float4*>(dhp);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float acc[C], acc2[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = acc2[c] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          const float4 v = d4[r * (G / 4) + i * KS + ks];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            acc[c] = fmaf(v.x, w[c][4 * i + 0], acc[c]);
+            acc2[c] = fmaf(v.y, w[c][4 * i + 1], acc2[c]);
+            acc[c] = fmaf(v.z, w[c][4 * i + 2], acc[c]);
+            acc2[c] = fmaf(v.w, w[c][4 * i + 3], acc2[c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] += acc2[c];
+        // sum over the KS lanes: butterflies down to C lanes, then a
+        // transposing reduction that leaves unit u0 + ks % C with lane ks
+#pragma unroll
+        for (int o = KS / 2; o >= C; o >>= 1) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+        }
+#pragma unroll
+        for (int o = C / 2; o >= 1; o >>= 1) {
+          const bool up = (ks & o) != 0;
+#pragma unroll
+          for (int j = 0; j < o; ++j) {
+            const float send = up ? acc[j] : acc[j + o];
+            const float keep = up ? acc[j + o] : acc[j];
+            acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
+        }
+        if (set == r % OWN) carry[r / OWN] = dhz[r / OWN] + acc[0];
+      }
+    }
+
+#pragma unroll
+    for (int e = 0; e < RO; ++e) {
+      const int r = e * OWN + set;
+      if (r < R && row0 + r < rows) dh0[(size_t)(row0 + r) * H + u] = carry[e];
+    }
+    __syncthreads();  // the next tile rewrites the d_hp buffers
   }
 }
 
@@ -714,14 +930,88 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
   }
 }
 
-// dw[i] = sum over splits, in split order, of part[split, i]; i < H*3H + 3H.
-__global__ void gru_dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                                  int splits, int size) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = 0.0f;
-  for (int p = 0; p < splits; ++p) s += part[(size_t)p * size + i];
-  dw[i] = s;
+// dw[i] = sum over the splits p of part[p, i]; i < size = H*3H + 3H.
+//
+// What bounds it: bytes, splits * size * 4 read once (13 MB at the FGRU's
+// 260 splits, 26 MB at the TGRU's 132), which gru_dw_partial has just
+// written, so most of it comes from L2. Design (`sum_plan` in cuda_gru.py):
+// a block of cols * groups threads owns `cols` float4 words (4 neighbouring
+// entries each) of the output; the `groups` lanes of a word sum the splits
+// p = group, group + groups, ... (eight 16-byte loads in flight a lane) into
+// four accumulators, add them pairwise, then meet by __shfl_xor_sync within
+// the warp and through shared memory across warps, each warp's partial added
+// in warp order by one thread per entry. The order of the sum is fixed by
+// (splits, size, cols, groups): the result is bit-identical run to run, but
+// not the sequential sum in split order. One launch, no atomics. A size that
+// is not a multiple of 4 leaves the rows of part off 16-byte boundaries: the
+// kernel then reads each word's entries one at a time, up to `size`.
+constexpr int SUM_MAX_THREADS = 256;
+
+__global__ void __launch_bounds__(SUM_MAX_THREADS)
+    gru_dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dw, int splits,
+                      int size, int cols, int groups) {
+  __shared__ float4 psum[SUM_MAX_THREADS];  // [warp partials][cols]
+  const int tid = threadIdx.x;
+  const int col = tid % cols, grp = tid / cols;
+  const int word = blockIdx.x * cols + col;
+  const bool vec = size % 4 == 0;
+  const int first = 4 * word;
+  const auto load = [&](int p) -> float4 {
+    const float* src = part + (size_t)p * size + first;
+    if (vec) return __ldg(reinterpret_cast<const float4*>(src));
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (first < size) v.x = __ldg(src);
+    if (first + 1 < size) v.y = __ldg(src + 1);
+    if (first + 2 < size) v.z = __ldg(src + 2);
+    if (first + 3 < size) v.w = __ldg(src + 3);
+    return v;
+  };
+  const auto add = [](float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  };
+
+  float4 acc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (first < size) {
+    int p = grp;
+    for (; p + 7 * groups < splits; p += 8 * groups) {
+      float4 v[8];  // eight 16-byte loads in flight
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = load(p + k * groups);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k & 3] = add(acc[k & 3], v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      if (p + k * groups < splits) acc[k & 3] = add(acc[k & 3], load(p + k * groups));
+    }
+  }
+  float4 s = add(add(acc[0], acc[1]), add(acc[2], acc[3]));
+
+  // the groups of one warp (32 / cols of them when cols < 32)
+  for (int o = cols; o < 32; o <<= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+    s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+    s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+  }
+  const int per_warp = cols < 32 ? 32 / cols : 1;  // groups a warp holds
+  const int partials = groups / per_warp;          // one per warp and word
+  if (grp % per_warp == 0) psum[(grp / per_warp) * cols + col] = s;
+  __syncthreads();
+  // one thread per entry adds the partials in order
+  for (int e = tid; e < 4 * cols; e += blockDim.x) {
+    const int c = e / 4, q = e % 4;
+    const int i = 4 * (blockIdx.x * cols + c) + q;
+    if (i >= size) continue;
+    float v = 0.0f;
+    for (int w = 0; w < partials; ++w) {
+      const float4 x = psum[w * cols + c];
+      v += q == 0 ? x.x : q == 1 ? x.y : q == 2 ? x.z : x.w;
+    }
+    dw[i] = v;
+  }
 }
 
 // ------------------------------------------------------------ launching
@@ -807,6 +1097,43 @@ cudaError_t dispatch_bwd(int rpt, const BwdArgs& a, cudaStream_t stream) {
   }
 }
 
+// The resident BPTT over min(row tiles, blocks the card holds at once).
+template <int H, int C, int KS, int R>
+cudaError_t launch_bwd_resident(const BwdArgs& a, cudaStream_t stream) {
+  auto kernel = gru_bwd_resident_kernel<H, C, KS, R>;
+  constexpr int threads = H / C * KS;
+  constexpr size_t smem = bwd_resident_smem_bytes<H, R>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (a.rows + R - 1) / R;
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  kernel<<<grid, threads, smem, stream>>>(a.g, a.g_hT, a.out, a.saved, a.h0, a.wh, a.d_xp, a.dh0,
+                                          a.rows, a.T, a.reverse);
+  return cudaGetLastError();
+}
+
+#define TRUNET_BWD_RESIDENT(HH, C, KS, RR) \
+  if (a.H == HH && rows_per_tile == RR) return launch_bwd_resident<HH, C, KS, RR>(a, stream);
+
+// The instantiations of the resident BPTT, (H, units and lanes of a lane
+// group, rows per tile); any other is refused. Lists `_BWD_RESIDENT` of
+// cuda_gru.py.
+cudaError_t dispatch_bwd_resident(int rows_per_tile, const BwdArgs& a, cudaStream_t stream) {
+  TRUNET_BWD_RESIDENT(64, 4, 8, 1) TRUNET_BWD_RESIDENT(64, 4, 8, 2)
+  TRUNET_BWD_RESIDENT(64, 4, 8, 4)
+  TRUNET_BWD_RESIDENT(128, 4, 8, 1) TRUNET_BWD_RESIDENT(128, 4, 8, 2)
+  TRUNET_BWD_RESIDENT(128, 4, 8, 4)
+  return cudaErrorInvalidValue;
+}
+
 template <int H, int STAGES>
 cudaError_t launch_dw_mma(dim3 grid, const float* out, const float* h0, const float* d_xp,
                           const float* saved, float* part, int rows, int T, int reverse,
@@ -848,17 +1175,22 @@ int trunet_gru_fwd_train(const void* x_proj, const void* h0, const void* wh, con
   return (int)dispatch_fwd<false>(rows_per_block, a, s);
 }
 
-// The BPTT on `stream`: d_xp and dh0. Same limits as the forward.
+// The BPTT on `stream`: d_xp and dh0.
+// resident 0: the general kernel, same limits as the forward.
+// resident 1: Wh in registers, for the (H, rows_per_block) that
+// dispatch_bwd_resident lists.
 int trunet_gru_bwd(const void* g, const void* g_hT, const void* out, const void* saved,
                    const void* h0, const void* wh, void* d_xp, void* dh0, int rows, int T,
-                   int H, int reverse, int rows_per_block, void* stream) {
-  if (!args_ok(rows, T, H, rows_per_block)) return (int)cudaErrorInvalidValue;
+                   int H, int reverse, int rows_per_block, int resident, void* stream) {
+  if (rows < 1 || T < 0 || H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
   const BwdArgs a{static_cast<const float*>(g),     static_cast<const float*>(g_hT),
                   static_cast<const float*>(out),   static_cast<const float*>(saved),
                   static_cast<const float*>(h0),    static_cast<const float*>(wh),
                   static_cast<float*>(d_xp),        static_cast<float*>(dh0),
                   rows, T, H, reverse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (resident == 1) return (int)dispatch_bwd_resident(rows_per_block, a, s);
+  if (resident != 0 || !args_ok(rows, T, H, rows_per_block)) return (int)cudaErrorInvalidValue;
   if (wh_in_smem(bwd_smem_bytes(H, rows_per_block, true)))
     return (int)dispatch_bwd<true>(rows_per_block, a, s);
   return (int)dispatch_bwd<false>(rows_per_block, a, s);
@@ -899,13 +1231,21 @@ int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, con
   return (int)cudaGetLastError();
 }
 
-// dw (H*3H + 3H) = the sum of the partials over the splits, in split order.
-int trunet_gru_dw_sum(const void* part, void* dw, int splits, int size, void* stream) {
-  if (splits < 1 || size < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  gru_dw_sum_kernel<<<(size + threads - 1) / threads, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part),
-                                                           static_cast<float*>(dw), splits, size);
+// dw (size = H*3H + 3H) = the sum of the partials part (splits, size) over
+// the splits, in an order fixed by the arguments (bit-identical run to run,
+// not the sequential order). Blocks of cols * groups threads, each owning
+// `cols` float4 words of dw; cols and groups are powers of two, their
+// product a multiple of 32 up to 256. part must be 16-byte aligned.
+int trunet_gru_dw_sum(const void* part, void* dw, int splits, int size, int cols, int groups,
+                      void* stream) {
+  const auto pow2 = [](int x) { return x > 0 && (x & (x - 1)) == 0; };
+  const int threads = cols * groups;
+  if (splits < 1 || size < 1 || !pow2(cols) || !pow2(groups) || threads % 32 != 0 ||
+      threads > SUM_MAX_THREADS || reinterpret_cast<size_t>(part) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int words = (size + 3) / 4;
+  gru_dw_sum_kernel<<<(words + cols - 1) / cols, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw), splits, size, cols, groups);
   return (int)cudaGetLastError();
 }
 

@@ -13,10 +13,14 @@ bh (3H,); outputs (rows, T, H).
 - `gru_recurrence_bwd`: the BPTT, (d_xp, dWh, dbh, dh0). On a card it runs
   `bptt` (kernel `gru_bwd`: d_xp, dh0), then `dw_partial` and `dw_sum`
   (kernels `gru_dw_partial` and `gru_dw_sum`: dWh, dbh); these three take
-  CUDA tensors only. `gru_dw_partial` runs on the tensor cores at H 64 and
-  128 (TF32 with bf16 corrections: within 1e-5 of the largest entry, about
-  five times the error of a float32 product, PERF.md) and as a float32 SIMT
-  product at any other H (`dw_splits`).
+  CUDA tensors only. `gru_bwd` runs on one of two paths chosen by
+  `bwd_plan`: Wh resident in registers (H 64, 128: the flagship's FGRU and
+  TGRU) or the general kernel (any other H up to 1024). `gru_dw_partial`
+  runs on the tensor cores at H 64 and 128 (TF32 with bf16 corrections:
+  within 1e-5 of the largest entry, about five times the error of a float32
+  product, PERF.md) and as a float32 SIMT product at any other H
+  (`dw_splits`). `gru_dw_sum` adds the splits in an order fixed by the
+  shapes (`sum_plan`): bit-identical run to run, not the order of the splits.
 - `GRURecurrence`: a `torch.autograd.Function` over (x_proj, h0, wh, bh,
   reverse) whose forward is `gru_recurrence_train` and whose backward is
   `gru_recurrence_bwd`. The input projection and its gradients stay plain
@@ -44,6 +48,8 @@ from tinyrecurrentunet_torch.ops import gru as gru_ops
 
 launches = 0  # gru_fwd
 last_fwd_plan = None  # the FwdPlan of the last gru_fwd launch
+last_bwd_plan = None  # the BwdPlan of the last gru_bwd launch
+last_sum_plan = None  # the SumPlan of the last gru_dw_sum launch
 last_dw_plan = None  # (tensor cores?, splits, row-steps per split) of the last gru_dw_partial launch
 fwd_train_launches = 0
 bwd_launches = 0
@@ -56,6 +62,7 @@ _DW_MIN_STEPS = 256  # fewest row-steps one split of the weight gradient sums
 _DW_MMA_CHUNK = 32  # row-steps gru_dw_mma_kernel stages at a time
 _DW_MMA_SLAB = 192  # columns of d_hp one block of gru_dw_mma_kernel owns
 _DW_MMA_HIDDEN = (64, 128)  # hidden sizes gru_dw_mma_kernel is built for
+_SUM_THREADS = 256  # most threads of a gru_dw_sum block
 
 
 class FwdPlan(NamedTuple):
@@ -73,6 +80,28 @@ _RESIDENT = {
     256: (8, 1, (1, 2, 4, 8)),
     512: (16, 1, (1, 2, 3, 4)),
 }
+
+
+class BwdPlan(NamedTuple):
+    """How one `gru_bwd` launch runs."""
+
+    path: str  # "general" or "registers"
+    rows_per_tile: int  # rows a block walks at once
+
+
+# hidden size -> (blocks an SM holds, rows per tile built, most rows per tile
+# the plan takes) of gru_bwd_resident_kernel
+_BWD_RESIDENT = {
+    64: (4, (1, 2, 4), 2),
+    128: (1, (1, 2, 4), 4),
+}
+
+
+class SumPlan(NamedTuple):
+    """How one `gru_dw_sum` launch runs: blocks of cols * groups threads."""
+
+    cols: int  # float4 words (4 neighbouring entries) of dw a block owns
+    groups: int  # lanes of a word, each summing every groups-th split
 
 
 def launch_counts() -> dict[str, int]:
@@ -142,6 +171,45 @@ def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
     return -(-steps // per_split), per_split
 
 
+def bwd_plan(rows: int, steps: int, hidden: int, num_sms: int) -> BwdPlan:
+    """The plan of one `gru_bwd` launch.
+
+    "registers" (H 64, 128) keeps Wh in registers; its blocks stay on the
+    card and walk row tile after row tile, so Wh is loaded once a block. It
+    takes the fewest rows per tile that keep the tiles within one wave of
+    the blocks the card holds (four an SM at H 64, one at H 128), at most 2
+    at H 64 and 4 at H 128: a wider step costs more than the waves it saves
+    (on an H100, 16,064 x 16 x 64: 0.31 ms at 2 rows, 0.33 at 4; 1,024 x 251
+    x 128: 0.86 ms at 4, 0.90 at 8; scripts/torch_gru_kernel_profile.py,
+    PERF.md). "general" is the kernel for every other H, with
+    `rows_per_block`.
+    """
+    if hidden not in _BWD_RESIDENT:
+        return BwdPlan("general", rows_per_block(rows, hidden, num_sms))
+    per_sm, tiles, most = _BWD_RESIDENT[hidden]
+    tiles = [t for t in tiles if t <= most]
+    fits = [t for t in tiles if -(-rows // t) <= num_sms * per_sm]
+    return BwdPlan("registers", fits[0] if fits else tiles[-1])
+
+
+def sum_plan(splits: int, size: int, num_sms: int) -> SumPlan:
+    """The plan of one `gru_dw_sum` launch over `splits` partials of `size`
+    entries: the widest blocks (8 to 128 float4 words) that still give at
+    least two blocks an SM, up to 256 threads a block and as many lanes per
+    word as splits (a power of two), at least one warp a block. On an H100
+    (scripts/torch_gru_kernel_profile.py, PERF.md) 260 x 12,480 ran in 4.0
+    µs at 8 words x 32 lanes, 132 x 49,536 in 5.6 µs at 32 x 8, where 8 x
+    32 (1,548 blocks) took 10.6."""
+    words = -(-size // 4)
+    cols = 8
+    while cols < 128 and -(-words // (2 * cols)) >= 2 * num_sms:
+        cols *= 2
+    groups = min(_SUM_THREADS // cols, 1 << (splits.bit_length() - 1))
+    while cols * groups < 32:
+        cols *= 2
+    return SumPlan(cols, groups)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("gru_fwd")
@@ -161,9 +229,9 @@ def _train_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "trunet_gru_fwd_train": [ptr] * 7 + [i32] * 5 + [ptr],
-        "trunet_gru_bwd": [ptr] * 8 + [i32] * 5 + [ptr],
+        "trunet_gru_bwd": [ptr] * 8 + [i32] * 6 + [ptr],
         "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 6 + [ptr],
-        "trunet_gru_dw_sum": [ptr] * 2 + [i32] * 2 + [ptr],
+        "trunet_gru_dw_sum": [ptr] * 2 + [i32] * 4 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -357,7 +425,12 @@ def _require_card(t: torch.Tensor, kernel: str):
 
 def bptt(g, g_hT, out, saved, h0, wh, reverse: bool = False):
     """Kernel `gru_bwd`: (d_xp (rows, T, 3H), dh0 (rows, H)). CUDA tensors only."""
-    global bwd_launches
+    return _launch_bwd(g, g_hT, out, saved, h0, wh, reverse)
+
+
+def _launch_bwd(g, g_hT, out, saved, h0, wh, reverse, plan=None):
+    """Launches `gru_bwd` on `plan` (default: `bwd_plan` of the shapes)."""
+    global bwd_launches, last_bwd_plan
     _require_card(out, "gru_bwd")
     _check_bwd(g, g_hT, out, saved, h0, wh)
     rows, steps, hidden = out.shape
@@ -365,16 +438,18 @@ def bptt(g, g_hT, out, saved, h0, wh, reverse: bool = False):
     dh0 = torch.empty((rows, hidden), dtype=torch.float32, device=out.device)
     if rows == 0:
         return d_xp, dh0
+    plan = plan or bwd_plan(rows, steps, hidden, _num_sms(out.device))
     lib = _train_lib()
     with torch.cuda.device(out.device):
         err = lib.trunet_gru_bwd(
             g.data_ptr(), g_hT.data_ptr(), out.data_ptr(), saved.data_ptr(), h0.data_ptr(),
             wh.data_ptr(), d_xp.data_ptr(), dh0.data_ptr(),
-            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, _num_sms(out.device)),
+            rows, steps, hidden, int(reverse), plan.rows_per_tile, int(plan.path != "general"),
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, "gru_bwd", "trunet_gru_train_error_string")
+    _raise_on_error(lib, err, f"gru_bwd {plan}", "trunet_gru_train_error_string")
     bwd_launches += 1
+    last_bwd_plan = plan
     return d_xp, dh0
 
 
@@ -420,21 +495,34 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
 
 
 def dw_sum(part: torch.Tensor, hidden: int):
-    """Kernel `gru_dw_sum`: the partials summed over the splits in split
-    order -> (dWh (H, 3H), dbh (3H,)). CUDA tensors only."""
-    global dw_sum_launches
-    _require_card(part, "gru_dw_sum")
+    """Kernel `gru_dw_sum`: the partials summed over the splits -> (dWh
+    (H, 3H), dbh (3H,)). The order of the sum is fixed by the shapes
+    (`sum_plan`), so two calls give the same bits, but it is not the
+    sequential sum in split order. CUDA tensors only; `part` on a 16-byte
+    boundary (the kernel reads 16 bytes at a time), else ValueError."""
+    return _launch_sum(part, hidden)
+
+
+def _launch_sum(part, hidden, plan=None):
+    """Launches `gru_dw_sum` on `plan` (default: `sum_plan` of the shapes)."""
+    global dw_sum_launches, last_sum_plan
     size = 3 * hidden * (hidden + 1)
     _check_tensors(part, part=part)
     if part.dim() != 2 or part.shape[1] != size or part.shape[0] < 1:
         raise ValueError(f"part must be (splits, {size}), got {tuple(part.shape)}")
+    if part.data_ptr() % 16:
+        raise ValueError("gru_dw_sum needs part aligned to 16 bytes")
+    _require_card(part, "gru_dw_sum")
+    splits = part.shape[0]
+    plan = plan or sum_plan(splits, size, _num_sms(part.device))
     dw = torch.empty(size, dtype=torch.float32, device=part.device)
     lib = _train_lib()
     with torch.cuda.device(part.device):
-        err = lib.trunet_gru_dw_sum(part.data_ptr(), dw.data_ptr(), part.shape[0], size,
+        err = lib.trunet_gru_dw_sum(part.data_ptr(), dw.data_ptr(), splits, size, plan.cols, plan.groups,
                                     torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, err, "gru_dw_sum", "trunet_gru_train_error_string")
+    _raise_on_error(lib, err, f"gru_dw_sum {plan}", "trunet_gru_train_error_string")
     dw_sum_launches += 1
+    last_sum_plan = plan
     return dw[: 3 * hidden * hidden].view(hidden, 3 * hidden), dw[3 * hidden * hidden :]
 
 
