@@ -18,13 +18,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weight-gradient reduction kernels) against their plain versions at the
    flagship training step's three launch shapes (batch 64 of 2 s clips),
    and time each, by device time under torch.profiler (in turns with the
-   PyTorch call, the lower of two readings) and by CUDA events around the
-   call, beside its plain version, its bound and a PyTorch call
-   computing the same function (torch.nn.GRU forward and backward, a
-   matmul, a sum); check that the BPTT ran on its resident path there
-   (timing the general kernel beside it) and that two sums of the same
-   partials give the same bits; hold the BPTT at one small ragged shape per
-   path and direction;
+   PyTorch call, the lower of two readings; a reading that lost kernel
+   records is taken again) and by CUDA events around the call, beside its
+   plain version, its bound and a PyTorch call computing the same function
+   (torch.nn.GRU forward and backward, a matmul, a sum); check that the
+   forward and the BPTT ran on their resident paths there (timing the
+   general kernels beside them) and that two sums of the same partials give
+   the same bits; hold the forward (out, h_T and saved each) and the BPTT
+   at one small ragged shape per path and direction, and the forward at
+   large16k's two training launch shapes (batch 16), timed beside the
+   general kernel;
 5. drive the training path: the port's `train()` on config/proc16k.json in
    float32 (train_compute_dtype cleared, nothing else changed), batch 64 of
    2 s synthetic clips, 5 steps, with the launch counts set to 0 just before
@@ -108,6 +111,7 @@ PARAM_ATOL = 1e-6
 PARAM_EXACT_SHARE = 0.8
 TRAIN_BATCH = 64
 TRAIN_STEPS = 5
+PROFILE_PAD_S = 0.01  # idle time at each end of a torch.profiler window (device_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "config", "proc16k.json")
@@ -134,28 +138,46 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name: str | None = None, iters: int = 10) -> float:
+def device_ms(fn, name: str | None = None, iters: int = 10, launches: int | None = None) -> float:
     """Mean device time in ms of the kernels whose name contains `name`
     (default: every kernel) over `iters` calls of fn(), from torch.profiler:
     the host's launch cost is left out, which CUDA events around a kernel of
-    a few microseconds would measure instead. The profiler has been seen to
-    return no kernel records now and then: such a reading is taken again, up
-    to three times."""
+    a few microseconds would measure instead.
+
+    A reading counts the kernel records it matched and holds only if they
+    are `iters` times the kernels one call launches (`launches`; by default
+    as many as a profiled single call of fn() gives, read beside it): the
+    profiler has been seen to return fewer records than were launched (1 to
+    7 of 20 missing, three readings in a row, on one machine), and such a
+    reading would be low. It is taken again, up to three times in all, and
+    then this raises. The window is padded with PROFILE_PAD_S of idle time
+    at each end, in case records near its edges are what goes missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+    def read(calls: int) -> tuple[int, float]:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and (name is None or name in e.key))
-        if total > 0:
+            time.sleep(PROFILE_PAD_S)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and (name is None or name in e.key)]
+        return sum(e.count for e in events), sum(e.device_time_total for e in events)
+
+    fn()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(3):
+        per_call = launches if launches is not None else read(1)[0]
+        count, total = read(iters)
+        readings.append((per_call, count))
+        if per_call > 0 and count == iters * per_call:
             return total / iters / 1e3
-    raise AssertionError(f"torch.profiler saw no device time for {name or 'any kernel'}")
+        log(f"[device_ms] {name or 'any kernel'}: {count} kernel records of {iters} x {per_call}, taken again")
+    raise AssertionError(f"torch.profiler: kernel records of {name or 'any kernel'} over {iters} calls "
+                         f"(per call, counted) {readings}, never {iters} x the kernels of one call")
 
 
 def make_clip(seed: int = 0) -> np.ndarray:
@@ -317,25 +339,33 @@ def torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, want_out):
             lambda: torch.autograd.grad((out_l, h_l), inputs, grads, retain_graph=True), err)
 
 
+def fwd_train_errors(got, want) -> dict[str, float]:
+    """Max abs error of each output of the training forward: out, h_T, saved."""
+    return {k: max_abs(a, b) for k, a, b in zip(("out", "h_T", "saved"), got, want)}
+
+
 def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
     """Phase 4 at one launch shape: each training kernel against its plain
     version on the same inputs, then timed: device time under torch.profiler
     ("ms") and CUDA events around the wrapper's call ("call_ms"), the same
-    two for the PyTorch call, and for `gru_bwd` the device time of the
-    general kernel, which the shape does not take. Returns one row per
-    kernel."""
+    two for the PyTorch call, and for `gru_fwd_train` and `gru_bwd` the
+    device time of the general kernel, which the shape does not take.
+    Returns one row per kernel."""
     device = torch.device("cuda")
     x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
     g = randn((rows, steps, hidden), seed + 100, device)
     g_hT = randn((rows, hidden), seed + 200, device)
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     got = cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    fwd_plan = cuda_gru.last_fwd_train_plan
+    fwd_general = cuda_gru.FwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))
+    fwd_general_got = cuda_gru._launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=fwd_general)
     want = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
     out, _, saved = want
     bwd_args = (g, g_hT, out, saved, h0, wh)
     d_xp, dh0 = cuda_gru.bptt(*bwd_args, reverse=reverse)
     bwd_plan = cuda_gru.last_bwd_plan
-    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     general = cuda_gru.BwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))
     gd_xp, gdh0 = cuda_gru._launch_bwd(*bwd_args, reverse, plan=general)
     p_dxp, p_dwh, p_dbh, p_dh0 = gru_ops.gru_recurrence_bwd(*bwd_args, reverse=reverse)
@@ -347,13 +377,16 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
     dw_sum_want = part.sum(dim=0)
     torch.cuda.synchronize()
     dw_got = torch.cat([dwh.reshape(-1), dbh])
+    fwd_errors = fwd_train_errors(got, want)
+    fwd_general_errors = fwd_train_errors(fwd_general_got, want)
     errors = {
-        "gru_fwd_train": max(max_abs(a, b) for a, b in zip(got, want)),
+        "gru_fwd_train": max(fwd_errors.values()),
         "gru_bwd": max(max_abs(d_xp, p_dxp), max_abs(dh0, p_dh0)),
         "gru_dw_partial": max(max_abs(dwh, p_dwh), max_abs(dbh, p_dbh)),
         "gru_dw_sum": max_abs(dw_got, dw_sum_want),
     }
     general_err = max(max_abs(gd_xp, p_dxp), max_abs(gdh0, p_dh0))
+    fwd_general_err = max(fwd_general_errors.values())
     rel = {
         "gru_dw_partial": max(max_rel(dwh, p_dwh), max_rel(dbh, p_dbh)),
         "gru_dw_sum": max_rel(dw_got, dw_sum_want),
@@ -387,12 +420,19 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
             lambda: torch.sum(part, dim=0),
         ),
     }
+    # the general kernels, which these shapes do not take
+    generals = {
+        "gru_fwd_train": lambda: cuda_gru._launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=fwd_general),
+        "gru_bwd": lambda: cuda_gru._launch_bwd(*bwd_args, reverse, plan=general),
+    }
     rows_out = []
     for kernel, (run, plain, library) in timing.items():
         nbytes, flops = train_kernel_work(kernel, rows, steps, hidden, part.shape[0])
         bound_ms, bound_by = bound(nbytes, flops, tensor_cores=kernel == "gru_dw_partial" and dw_plan[0])
-        # kernel and PyTorch call in turns, the lower of two readings each
-        kernel_ms, library_ms = zip(*((device_ms(run), device_ms(library)) for _ in range(2)))
+        # kernel, PyTorch call (and general kernel) in turns, the lower of two readings each
+        turns = [(device_ms(run, launches=1), device_ms(library),
+                  device_ms(generals[kernel], launches=1) if kernel in generals else None) for _ in range(2)]
+        kernel_ms, library_ms, general_ms = zip(*turns)
         row = {
             "kernel": kernel, "shape": name, "rows": rows, "T": steps, "H": hidden,
             "reverse": reverse, "max_abs_err": errors[kernel], "max_rel_err": rel.get(kernel),
@@ -400,11 +440,15 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
             "library_ms": min(library_ms), "library_call_ms": cuda_ms(library, 10),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         }
+        if kernel in generals:
+            row["general_ms"] = min(general_ms)
         if kernel == "gru_fwd_train":
             row["library_max_abs_err"] = lib_err
+            row["path"], row["rows_per_tile"] = fwd_plan
+            row["max_abs_err_by_output"] = fwd_errors
+            row["general_rows_per_block"], row["general_max_abs_err"] = fwd_general.rows_per_tile, fwd_general_err
         if kernel == "gru_bwd":
             row["path"], row["rows_per_tile"] = bwd_plan
-            row["general_ms"] = device_ms(lambda: cuda_gru._launch_bwd(*bwd_args, reverse, plan=general))
             row["general_rows_per_block"], row["general_max_abs_err"] = general.rows_per_tile, general_err
         if kernel == "gru_dw_partial":
             row["path"] = "tensor_cores" if dw_plan[0] else "simt"
@@ -416,10 +460,11 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
         rows_out.append(row)
     if not finite:
         raise AssertionError(f"training kernels {name}: non-finite output")
-    if bwd_plan.path != "registers":
-        raise AssertionError(f"gru_bwd {name}: ran on the {bwd_plan.path} path, expected registers")
-    for kernel, err in (("gru_fwd_train", errors["gru_fwd_train"]), ("gru_bwd", errors["gru_bwd"]),
-                        ("gru_bwd general", general_err)):
+    for kernel, plan in (("gru_fwd_train", fwd_plan), ("gru_bwd", bwd_plan)):
+        if plan.path != "registers":
+            raise AssertionError(f"{kernel} {name}: ran on the {plan.path} path, expected registers")
+    for kernel, err in (("gru_fwd_train", errors["gru_fwd_train"]), ("gru_fwd_train general", fwd_general_err),
+                        ("gru_bwd", errors["gru_bwd"]), ("gru_bwd general", general_err)):
         if err > KERNEL_ATOL:
             raise AssertionError(f"{kernel} {name}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
     for kernel, value in rel.items():
@@ -428,6 +473,69 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
     if not torch.equal(dw_got, dw_again):
         raise AssertionError(f"gru_dw_sum {name}: two calls on the same partials differ")
     return rows_out
+
+
+def check_fwd_train_shape(name, path, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
+    """Phase 4 at a small ragged shape: `gru_fwd_train` against its plain
+    version, out, h_T and saved each on its own, on `path`."""
+    device = torch.device("cuda")
+    x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
+    got = cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    plan = cuda_gru.last_fwd_train_plan
+    errs = fwd_train_errors(got, gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse))
+    torch.cuda.synchronize()
+    row = {"kernel": "gru_fwd_train", "shape": name, "rows": rows, "T": steps, "H": hidden, "reverse": reverse,
+           "path": plan.path, "rows_per_tile": plan.rows_per_tile, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_output": errs}
+    log(f"[train-kernel] {json.dumps(row)}")
+    if plan.path != path:
+        raise AssertionError(f"gru_fwd_train {name}: ran on the {plan.path} path, expected {path}")
+    if rows % plan.rows_per_tile == 0 or steps % 2 == 0:
+        raise AssertionError(f"gru_fwd_train {name} is not ragged: {row}")
+    for what, err in errs.items():
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"gru_fwd_train {name}: {what} max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
+    return row
+
+
+def check_fwd_train_large(name, path, rows, steps, hidden, seed, cuda_gru, gru_ops):
+    """Phase 4 at a launch shape of large16k's training: `gru_fwd_train` on
+    `path` against its plain version, timed by device time in turns with the
+    general kernel and torch.nn.GRU's training forward."""
+    device = torch.device("cuda")
+    x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
+    got = cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh)
+    plan = cuda_gru.last_fwd_train_plan
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    general = cuda_gru.FwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))
+    general_got = cuda_gru._launch_fwd_train(x_proj, h0, wh, bh, False, plan=general)
+    want = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh)
+    errs, general_errs = fwd_train_errors(got, want), fwd_train_errors(general_got, want)
+    fwd_lib, _, lib_err = torch_gru_train_calls(x_proj, h0, wh, bh, False, want[0], want[1], want[0])
+
+    def run():
+        return cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh)
+
+    turns = [(device_ms(run, launches=1), device_ms(fwd_lib),
+              device_ms(lambda: cuda_gru._launch_fwd_train(x_proj, h0, wh, bh, False, plan=general), launches=1))
+             for _ in range(2)]
+    kernel_ms, library_ms, general_ms = (min(t) for t in zip(*turns))
+    nbytes, flops = train_kernel_work("gru_fwd_train", rows, steps, hidden, 0)
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = {"kernel": "gru_fwd_train", "shape": name, "rows": rows, "T": steps, "H": hidden, "reverse": False,
+           "path": plan.path, "rows_per_tile": plan.rows_per_tile, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_output": errs, "ms": kernel_ms, "call_ms": cuda_ms(run, 5),
+           "plain_ms": cuda_ms(lambda: gru_ops.gru_recurrence_train(x_proj, h0, wh, bh), 2, 1),
+           "library_ms": library_ms, "library_max_abs_err": lib_err, "general_ms": general_ms,
+           "general_rows_per_block": general.rows_per_tile, "general_max_abs_err": max(general_errs.values()),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    log(f"[train-kernel] {json.dumps(row)}")
+    if plan.path != path:
+        raise AssertionError(f"gru_fwd_train {name}: ran on the {plan.path} path, expected {path}")
+    for what, err in (*errs.items(), *(("general " + k, v) for k, v in general_errs.items())):
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"gru_fwd_train {name}: {what} max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
+    return row
 
 
 def check_bwd_shape(name, path, rows, steps, hidden, reverse, seed, cuda_gru, gru_ops):
@@ -724,6 +832,28 @@ def main() -> int:
         for seed, (name, r, t, h, rev) in enumerate(train_shapes)
         for row in check_train_kernels(name, r, t, h, rev, 10 + seed, cuda_gru, gru_ops)
     ]
+    # gru_fwd_train at rows not a multiple of the row tile and T odd, both
+    # directions, on each path
+    ragged_fwd_shapes = [
+        (path, r, t, h, rev)
+        for path, r, t, h in (("registers", 1001, 13, 64), ("registers", 133, 7, 128),
+                              ("cluster", 133, 5, 256), ("cluster", 19, 3, 512), ("general", 301, 9, 40))
+        for rev in (False, True)
+    ]
+    ragged_fwd = [
+        check_fwd_train_shape(f"ragged_{path}_h{h}_{'rev' if rev else 'fwd'}", path, r, t, h, rev, 60 + i,
+                              cuda_gru, gru_ops)
+        for i, (path, r, t, h, rev) in enumerate(ragged_fwd_shapes)
+    ]
+    # gru_fwd_train at large16k's training launch shapes, at its own batch
+    large_batch = large.train.optimization.batch_size_per_device
+    large_frames = int(large.trainset.crop_length_sec * SAMPLE_RATE) // large.featurizer.hop_length + 1
+    large_fwd = [
+        check_fwd_train_large("large16k_train_fgru", "cluster", large_batch * large_frames, large_fb,
+                              large.network.fgru_hidden, 70, cuda_gru, gru_ops),
+        check_fwd_train_large("large16k_train_tgru", "cluster", large_batch * large_fb, large_frames,
+                              large.network.tgru_hidden, 71, cuda_gru, gru_ops),
+    ]
     # gru_bwd at rows not a multiple of the row tile and T odd, both
     # directions, on each path
     ragged_bwd_shapes = [
@@ -786,6 +916,16 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in mine),
             "shapes": mine,
         }
+        if name == "gru_fwd_train":
+            # the resident kernel of gru_fwd.cu, with its residuals saved; the
+            # general kernel (any other H) is in gru_train.cu
+            entry["source"] = "tinyrecurrentunet_torch/ops/csrc/gru_fwd.cu"
+            entry["general_source"] = "tinyrecurrentunet_torch/ops/csrc/gru_train.cu"
+            entry["max_abs_err"] = max(r["max_abs_err"] for r in mine + ragged_fwd + large_fwd)
+            entry["general_ms"] = sum(r["general_ms"] for r in mine)
+            entry["paths"] = sorted({r["path"] for r in mine + ragged_fwd + large_fwd})
+            entry["ragged_shapes"] = ragged_fwd
+            entry["large16k_shapes"] = large_fwd
         if name == "gru_bwd":
             entry["max_abs_err"] = max(r["max_abs_err"] for r in mine + ragged_bwd)
             entry["general_ms"] = sum(r["general_ms"] for r in mine)

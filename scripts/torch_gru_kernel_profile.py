@@ -1,23 +1,24 @@
-"""Sweeps the launch plans of the port's `gru_fwd`, `gru_dw_partial`,
-`gru_bwd` and `gru_dw_sum` kernels on the card, at the shapes the flagship
-and large16k give them in serving (batch 1, a 4 s clip), in evaluation and
-training at batch 64 of 2 s clips, and (`gru_bwd`, `gru_dw_sum`) in training
+"""Sweeps the launch plans of the port's `gru_fwd`, `gru_fwd_train`,
+`gru_dw_partial`, `gru_bwd` and `gru_dw_sum` kernels on the card, at the
+shapes the flagship and large16k give them in serving (batch 1, a 4 s clip),
+in evaluation and training at batch 64 of 2 s clips (large16k's training at
+its batch of 16), and (`gru_fwd_train`, `gru_bwd`, `gru_dw_sum`) in training
 at batch 8.
 
-    python scripts/torch_gru_kernel_profile.py [--only fwd|dw|bwd] [--iters 20]
+    python scripts/torch_gru_kernel_profile.py [--only fwd|fwd_train|dw|bwd] [--iters 20]
 
-For every shape and every plan (path and rows per tile for `gru_fwd` and
-`gru_bwd`, so every instantiation the library builds is launched; splits
-for `gru_dw_partial`; words and lanes a block for `gru_dw_sum`) it prints
-one JSON line: the error against the plain PyTorch version on the same
-inputs, the errors of both against the plain version in float64, the
-kernel's time by CUDA events and (`gru_fwd`, `gru_bwd`, `gru_dw_sum`) its
+For every shape and every plan (path and rows per tile for `gru_fwd`,
+`gru_fwd_train` and `gru_bwd`, so every instantiation the libraries build is
+launched; splits for `gru_dw_partial`; words and lanes a block for
+`gru_dw_sum`) it prints one JSON line: the error against the plain PyTorch
+version on the same inputs, the errors of both against the plain version in
+float64, the kernel's time by CUDA events and (all but `gru_dw_partial`) its
 device time under torch.profiler, which leaves the host's launch cost out,
 and the time of the PyTorch call that computes the same function
 (torch.nn.GRU and its backward, torch.matmul on operands made beforehand,
 torch.sum). `gru_dw_sum` also says whether two calls gave the same bits.
-The plan that `fwd_plan` / `dw_splits` / `bwd_plan` / `sum_plan` choose is
-marked "chosen". The build log (ptxas registers and spills) comes first.
+The plan that `fwd_plan` / `fwd_train_plan` / `dw_splits` / `bwd_plan` /
+`sum_plan` choose is marked "chosen". The build log (ptxas registers and spills) comes first.
 Fails if any plan misses chip_smoke.py's tolerance against the plain
 version (KERNEL_ATOL, DW_RTOL) or `gru_dw_sum` differs between two calls.
 Needs a CUDA card and nvcc.
@@ -64,6 +65,12 @@ BWD_SHAPES = DW_SHAPES + [
     ("train8_fgru_fwd", 2008, 16, 64, False),
     ("train8_tgru", 128, 251, 128, False),
 ]
+# and large16k's training shapes at its batch of 16 (the cluster path)
+FWD_TRAIN_SHAPES = BWD_SHAPES + [
+    ("large16k_train_fgru_fwd", 4016, 16, 256, False),
+    ("large16k_train_fgru_rev", 4016, 16, 256, True),
+    ("large16k_train_tgru", 256, 251, 512, False),
+]
 
 
 def sweep_fwd(iters: int, num_sms: int) -> list[str]:
@@ -93,10 +100,47 @@ def sweep_fwd(iters: int, num_sms: int) -> list[str]:
                 "max_abs_err": err,
                 "max_abs_err_vs_float64": max(max_abs(a.double(), b) for a, b in zip(got, want64)),
                 "plain_abs_err_vs_float64": plain_err64,
-                "ms": cuda_ms(run, iters), "device_ms": device_ms(run, "gru_fwd"),
+                "ms": cuda_ms(run, iters), "device_ms": device_ms(run, "gru_fwd", launches=1),
                 "library_ms": library_ms}), flush=True)
             if not err <= KERNEL_ATOL:
                 failures.append(f"gru_fwd {name} {plan}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
+    return failures
+
+
+def sweep_fwd_train(iters: int, num_sms: int) -> list[str]:
+    """Every instantiation of `gru_fwd_train` (the general kernel at its
+    rows_per_block, the resident one at every rows per tile built), errors
+    on out, h_T and saved each."""
+    device = torch.device("cuda")
+    failures = []
+    for seed, (name, rows, steps, hidden, reverse) in enumerate(FWD_TRAIN_SHAPES):
+        args = gru_inputs(rows, steps, hidden, 10 + seed, device)
+        want = gru_ops.gru_recurrence_train(*args, reverse=reverse)
+        want64 = gru_ops.gru_recurrence_train(*(a.double() for a in args), reverse=reverse)
+        plain_err64 = max(max_abs(a.double(), b) for a, b in zip(want, want64))
+        fwd_lib = torch_gru_train_calls(*args, reverse, want[0], want[1], want[0])[0]
+        library_ms = device_ms(fwd_lib, iters=iters)
+        max_clusters = cuda_gru._max_clusters(device, hidden, save=True)
+        chosen = cuda_gru.fwd_train_plan(rows, steps, hidden, num_sms, max_clusters)
+        plans = [cuda_gru.FwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))]
+        plans += [cuda_gru.FwdPlan(chosen.path, r) for r in cuda_gru._RESIDENT[hidden][2]]
+        for plan in plans:
+            def run():
+                return cuda_gru._launch_fwd_train(*args, reverse, plan=plan)
+
+            got = run()
+            torch.cuda.synchronize()
+            errs = {k: max_abs(a, b) for k, a, b in zip(("out", "h_T", "saved"), got, want)}
+            print(json.dumps({
+                "kernel": "gru_fwd_train", "shape": name, "rows": rows, "T": steps, "H": hidden,
+                "reverse": reverse, **plan._asdict(), "chosen": plan == chosen, "max_clusters": max_clusters,
+                "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+                "max_abs_err_vs_float64": max(max_abs(a.double(), b) for a, b in zip(got, want64)),
+                "plain_abs_err_vs_float64": plain_err64,
+                "device_ms": device_ms(run, "gru_fwd", iters, launches=1), "ms": cuda_ms(run, iters),
+                "library_device_ms": library_ms}), flush=True)
+            if not max(errs.values()) <= KERNEL_ATOL:
+                failures.append(f"gru_fwd_train {name} {plan}: max abs err {errs} > {KERNEL_ATOL:.0e}")
     return failures
 
 
@@ -178,7 +222,7 @@ def sweep_bwd(iters: int, num_sms: int) -> list[str]:
                 **plan._asdict(), "chosen": plan == chosen, "max_abs_err": err,
                 "max_abs_err_vs_float64": max(max_abs(d_xp.double(), want64[0]), max_abs(dh0.double(), want64[3])),
                 "plain_abs_err_vs_float64": plain_err64,
-                "device_ms": device_ms(run, "gru_bwd", iters), "ms": cuda_ms(run, iters),
+                "device_ms": device_ms(run, "gru_bwd", iters, launches=1), "ms": cuda_ms(run, iters),
                 "library_device_ms": library_ms}), flush=True)
             if not err <= KERNEL_ATOL:
                 failures.append(f"gru_bwd {name} {plan}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
@@ -203,7 +247,7 @@ def sweep_bwd(iters: int, num_sms: int) -> list[str]:
                 **plan._asdict(), "chosen": plan == chosen, "max_rel_err": err,
                 "max_rel_err_vs_float64": max_rel(first.double(), sum_want64),
                 "plain_rel_err_vs_float64": max_rel(sum_want.double(), sum_want64), "bit_identical": same,
-                "device_ms": device_ms(run, "gru_dw_sum", iters), "ms": cuda_ms(run, iters),
+                "device_ms": device_ms(run, "gru_dw_sum", iters, launches=1), "ms": cuda_ms(run, iters),
                 "library_device_ms": library_ms, "library_ms": cuda_ms(lambda: torch.sum(part, dim=0), iters)}),
                 flush=True)
             if not err <= DW_RTOL or not same:
@@ -213,7 +257,7 @@ def sweep_bwd(iters: int, num_sms: int) -> list[str]:
 
 def main():
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", choices=("fwd", "dw", "bwd"))
+    parser.add_argument("--only", choices=("fwd", "fwd_train", "dw", "bwd"))
     parser.add_argument("--iters", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -227,6 +271,8 @@ def main():
     failures = []
     if args.only in (None, "fwd"):
         failures += sweep_fwd(args.iters, num_sms)
+    if args.only in (None, "fwd_train"):
+        failures += sweep_fwd_train(args.iters, num_sms)
     if args.only in (None, "dw"):
         failures += sweep_dw(args.iters, num_sms)
     if args.only in (None, "bwd"):

@@ -319,3 +319,50 @@ def test_dw_sum_refuses_misaligned_part_on_card(card):
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         cuda_gru.dw_sum(flat[1:].view(2, 60), 4)
     assert cuda_gru.dw_sum_launches == before
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden,rows_per_tile", [
+    (hidden, r) for hidden in cuda_gru._FWD_TRAIN_RESIDENT for r in cuda_gru._RESIDENT[hidden][2]])
+def test_every_resident_fwd_train_instantiation(card, hidden, rows_per_tile, reverse):
+    """Every (H, rows per tile) of the resident training forward, on a
+    ragged last tile, T odd, and more tiles than the card holds blocks (H 64,
+    128: blocks walk several tiles) or clusters (H 256, 512)."""
+    cluster = cuda_gru._RESIDENT[hidden][0]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    tiles = 8 * sms + 3 if cluster == 1 else 20
+    rows, steps = tiles * rows_per_tile + 1, 5
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, hidden + rows_per_tile, card)
+    path = "cluster" if cluster > 1 else "registers"
+    before = cuda_gru.fwd_train_launches
+    got = cuda_gru._launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=cuda_gru.FwdPlan(path, rows_per_tile))
+    torch.cuda.synchronize()
+    assert cuda_gru.fwd_train_launches == before + 1
+    want = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    for a, b in zip(got, want):  # out, h_T, saved
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows,steps,hidden,path", [
+    (16064, 16, 64, "registers"),  # flagship training shapes at batch 64
+    (1024, 251, 128, "registers"),
+    (4016, 16, 256, "cluster"),    # large16k's at its batch of 16
+    (256, 251, 512, "cluster"),
+    (1001, 13, 64, "registers"),   # ragged rows and T
+    (133, 7, 128, "registers"),
+    (133, 5, 256, "cluster"),
+    (19, 3, 512, "cluster"),
+    (301, 9, 40, "general"),
+    (1, 9, 64, "registers"),
+    (16, 0, 64, "registers"),      # no step: h_T = h0
+    (16, 0, 256, "cluster"),
+])
+def test_fwd_train_path_matches_plain_version(card, rows, steps, hidden, path, reverse):
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
+    got = cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    torch.cuda.synchronize()
+    assert cuda_gru.last_fwd_train_plan.path == path
+    want = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    for a, b in zip(got, want):  # out, h_T, saved
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL)

@@ -198,6 +198,35 @@ def test_bwd_plan(rows, steps, hidden, expect):
     assert tuple(cuda_gru.bwd_plan(rows, steps, hidden, 132)) == expect
 
 
+@pytest.mark.parametrize("rows,steps,hidden,max_clusters,expect", [
+    # Wh in registers, blocks that stay on the card (H 64: two an SM, H 128:
+    # one): the fewest rows a tile that keep one wave, at most 8 at H 64 and
+    # 4 at H 128
+    (16064, 16, 64, None, ("registers", 8)),   # flagship FGRU at batch 64: 2,008 tiles
+    (1024, 251, 128, None, ("registers", 4)),  # flagship TGRU at batch 64: 256 tiles, two waves
+    (2008, 16, 64, None, ("registers", 8)),    # FGRU at batch 8: one wave of 264
+    (128, 251, 128, None, ("registers", 1)),   # TGRU at batch 8
+    (500, 16, 64, None, ("registers", 2)),
+    (1001, 13, 64, None, ("registers", 4)),
+    (133, 7, 128, None, ("registers", 2)),
+    (1, 1, 64, None, ("registers", 1)),
+    # clusters (H 256: 8 blocks, H 512: 16), at most 4 rows a tile: as many
+    # as fit the clusters the card holds (15 and 7 on an H100)
+    (4016, 16, 256, 15, ("cluster", 4)),       # large16k FGRU at batch 16
+    (256, 251, 512, 7, ("cluster", 4)),        # large16k TGRU at batch 16
+    (133, 5, 256, 15, ("cluster", 4)),
+    (19, 3, 512, 7, ("cluster", 3)),
+    (16, 3, 512, None, ("cluster", 2)),        # by default the SMs over the cluster size: 8
+    (16, 3, 512, 7, ("cluster", 3)),
+    # the general kernel (any other H), rows_per_block
+    (301, 9, 40, None, ("general", 4)),
+    (16064, 16, 100, None, ("general", 8)),
+    (3, 1, 8, None, ("general", 1)),
+])
+def test_fwd_train_plan(rows, steps, hidden, max_clusters, expect):
+    assert tuple(cuda_gru.fwd_train_plan(rows, steps, hidden, 132, max_clusters)) == expect
+
+
 @pytest.mark.parametrize("splits,size,expect", [
     (260, 12480, (8, 32)),   # flagship FGRU at batch 64: 390 blocks of 256 threads
     (132, 49536, (32, 8)),   # flagship TGRU at batch 64: 387 blocks

@@ -5,7 +5,9 @@
 // `GRURecurrence`).
 //
 // Replaces the TPU kernels of tinyrecurrentunet_tpu/ops/pallas_gru_vjp.py:
-//   `_fwd_kernel` -> gru_fwd_train_kernel
+//   `_fwd_kernel` -> gru_fwd_train_kernel (path "general", any H), or at H =
+//                    64, 128, 256, 512 the resident kernel of gru_fwd.cu with
+//                    its residuals saved (`trunet_gru_fwd_train_resident`)
 //   `_bwd_kernel` -> gru_bwd_resident_kernel (H = 64, 128) or gru_bwd_kernel
 //                    (d_xp, the dh carry, dh0)
 //                    + gru_dw_mma_kernel (H = 64, 128) or gru_dw_partial_kernel
@@ -43,8 +45,8 @@
 // (25 GFLOP of float32 FMAs, 0.39 ms), and the serial chain of 251 steps.
 //
 // gru_fwd_train_kernel<RPT, WH_SMEM> and gru_bwd_kernel<RPT, WH_SMEM> (path
-// "general" of the BPTT, any 1 <= H <= 1024; the forward's only path), as
-// the general kernel of gru_fwd.cu: one block owns 1-8 rows and walks all T
+// "general" of the forward and of the BPTT, any 1 <= H <= 1024), as the
+// general kernel of gru_fwd.cu: one block owns 1-8 rows and walks all T
 // steps, thread j owns hidden unit j; Wh sits in dynamic shared memory when
 // it fits (48 KB at H=64, 192 KB at H=128), the backward holds it
 // transposed so that thread j reads column j. Each FMA needs a shared load.

@@ -9,7 +9,11 @@ bh (3H,); outputs (rows, T, H).
   `fwd_plan`: Wh resident in registers (H 64, 128), the same across a thread
   block cluster (H 256, 512), or the general kernel (any H up to 1024).
 - `gru_recurrence_train`: the same, also returning the residuals saved
-  (rows, T, 4H) = (r, z, n, hn) per step. Kernel `gru_fwd_train`.
+  (rows, T, 4H) = (r, z, n, hn) per step. Kernel `gru_fwd_train`, on one of
+  three paths chosen by `fwd_train_plan`: the resident kernel of `gru_fwd`
+  with the residuals written beside h (H 64, 128: blocks that stay on the
+  card and walk row tile after row tile; H 256, 512: clusters), or the
+  general kernel of `gru_train.cu` (any H up to 1024).
 - `gru_recurrence_bwd`: the BPTT, (d_xp, dWh, dbh, dh0). On a card it runs
   `bptt` (kernel `gru_bwd`: d_xp, dh0), then `dw_partial` and `dw_sum`
   (kernels `gru_dw_partial` and `gru_dw_sum`: dWh, dbh); these three take
@@ -48,6 +52,7 @@ from tinyrecurrentunet_torch.ops import gru as gru_ops
 
 launches = 0  # gru_fwd
 last_fwd_plan = None  # the FwdPlan of the last gru_fwd launch
+last_fwd_train_plan = None  # the FwdPlan of the last gru_fwd_train launch
 last_bwd_plan = None  # the BwdPlan of the last gru_bwd launch
 last_sum_plan = None  # the SumPlan of the last gru_dw_sum launch
 last_dw_plan = None  # (tensor cores?, splits, row-steps per split) of the last gru_dw_partial launch
@@ -79,6 +84,20 @@ _RESIDENT = {
     128: (1, 1, (1, 2, 4)),
     256: (8, 1, (1, 2, 4, 8)),
     512: (16, 1, (1, 2, 3, 4)),
+}
+
+
+# hidden size -> (blocks an SM holds, most rows per tile the plan takes) of
+# gru_fwd_resident_kernel with its residuals saved (the training forward);
+# rows per tile built and cluster size as in _RESIDENT. Blocks an SM holds:
+# ptxas's registers at 4 and 8 rows a tile (135 and 167 at H 64, 168 at H
+# 128). The most rows: the fastest tile at the flagship's and large16k's
+# training shapes on an H100 (scripts/torch_gru_kernel_profile.py, PERF.md).
+_FWD_TRAIN_RESIDENT = {
+    64: (2, 8),
+    128: (1, 4),
+    256: (1, 4),
+    512: (1, 4),
 }
 
 
@@ -129,6 +148,13 @@ def rows_per_block(rows: int, hidden: int, num_sms: int) -> int:
     return rpb
 
 
+def _fewest_rows_in_one_wave(rows: int, tiles, wave: int) -> int:
+    """The fewest rows per tile of `tiles` (ascending) that cut `rows` into
+    at most `wave` tiles, else the most."""
+    fits = [t for t in tiles if -(-rows // t) <= wave]
+    return fits[0] if fits else tiles[-1]
+
+
 def fwd_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int | None = None) -> FwdPlan:
     """The plan of one `gru_fwd` launch.
 
@@ -148,8 +174,32 @@ def fwd_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int
     wave = num_sms * per_sm // cluster
     if cluster > 1 and max_clusters is not None:
         wave = max_clusters
-    fits = [t for t in tiles if -(-rows // t) <= wave]
-    return FwdPlan("cluster" if cluster > 1 else "registers", fits[0] if fits else tiles[-1])
+    return FwdPlan("cluster" if cluster > 1 else "registers", _fewest_rows_in_one_wave(rows, tiles, wave))
+
+
+def fwd_train_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int | None = None) -> FwdPlan:
+    """The plan of one `gru_fwd_train` launch.
+
+    "registers" (H 64, 128) keeps Wh in registers, and its blocks stay on
+    the card and walk row tile after row tile; "cluster" (H 256, 512) shares
+    a row tile among 8 and 16 blocks, one cluster per tile. Both take the
+    fewest rows per tile that keep the tiles within one wave of the card (the
+    blocks it holds, or `max_clusters` clusters; by default the SMs over the
+    cluster size), else the most the plan takes: 8 at H 64, 4 at H 128, 256
+    and 512 (on an H100, 16,064 x 16 x 64: 0.31 ms at 8 rows, 0.33 at 4;
+    1,024 x 251 x 128: 0.97 at 4, 1.07 at 2; 4,016 x 16 x 256: 1.63 at 4,
+    1.77 at 8). "general" is the kernel of `gru_train.cu` for every other H,
+    with `rows_per_block`.
+    """
+    if hidden not in _FWD_TRAIN_RESIDENT:
+        return FwdPlan("general", rows_per_block(rows, hidden, num_sms))
+    cluster, _, built = _RESIDENT[hidden]
+    per_sm, most = _FWD_TRAIN_RESIDENT[hidden]
+    tiles = [t for t in built if t <= most]
+    wave = num_sms * per_sm // cluster
+    if cluster > 1 and max_clusters is not None:
+        wave = max_clusters
+    return FwdPlan("cluster" if cluster > 1 else "registers", _fewest_rows_in_one_wave(rows, tiles, wave))
 
 
 def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
@@ -188,8 +238,7 @@ def bwd_plan(rows: int, steps: int, hidden: int, num_sms: int) -> BwdPlan:
         return BwdPlan("general", rows_per_block(rows, hidden, num_sms))
     per_sm, tiles, most = _BWD_RESIDENT[hidden]
     tiles = [t for t in tiles if t <= most]
-    fits = [t for t in tiles if -(-rows // t) <= num_sms * per_sm]
-    return BwdPlan("registers", fits[0] if fits else tiles[-1])
+    return BwdPlan("registers", _fewest_rows_in_one_wave(rows, tiles, num_sms * per_sm))
 
 
 def sum_plan(splits: int, size: int, num_sms: int) -> SumPlan:
@@ -216,7 +265,9 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.trunet_gru_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.trunet_gru_fwd.restype = i32
-    lib.trunet_gru_fwd_max_clusters.argtypes = [i32]
+    lib.trunet_gru_fwd_train_resident.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.trunet_gru_fwd_train_resident.restype = i32
+    lib.trunet_gru_fwd_max_clusters.argtypes = [i32, i32]
     lib.trunet_gru_fwd_max_clusters.restype = i32
     lib.trunet_cuda_error_string.argtypes = [i32]
     lib.trunet_cuda_error_string.restype = ctypes.c_char_p
@@ -305,20 +356,22 @@ def _num_sms(device: torch.device) -> int:
 
 
 @functools.cache
-def _max_clusters(device: torch.device, hidden: int) -> int | None:
-    """Clusters of the resident kernel that `device` holds at once (H 256,
-    512), asked once per device, which also allows the kernel its cluster
-    size there; None where the kernel runs without clusters. Raises if the
-    card cannot schedule the cluster at all."""
+def _max_clusters(device: torch.device, hidden: int, save: bool = False) -> int | None:
+    """Clusters of the resident kernel (of inference, or with `save` of the
+    training forward) that `device` holds at once (H 256, 512), asked once
+    per device, which also allows the kernel its cluster size there; None
+    where the kernel runs without clusters. Raises if the card cannot
+    schedule the cluster at all."""
     if _RESIDENT.get(hidden, (1,))[0] == 1:
         return None
+    kernel = "gru_fwd_train" if save else "gru_fwd"
     lib = _lib()
     with torch.cuda.device(device):
-        clusters = lib.trunet_gru_fwd_max_clusters(hidden)
+        clusters = lib.trunet_gru_fwd_max_clusters(hidden, int(save))
     if clusters < 0:
-        _raise_on_error(lib, -clusters, "gru_fwd cluster occupancy query", "trunet_cuda_error_string")
+        _raise_on_error(lib, -clusters, f"{kernel} cluster occupancy query", "trunet_cuda_error_string")
     if clusters == 0:
-        raise RuntimeError(f"gru_fwd: the card cannot schedule the clusters of the H={hidden} kernel")
+        raise RuntimeError(f"{kernel}: the card cannot schedule the clusters of the H={hidden} kernel")
     return clusters
 
 
@@ -373,7 +426,14 @@ def gru_recurrence_train(
     PyTorch on the CPU, the `gru_fwd_train` kernel on a card."""
     if not _on_card(x_proj):
         return gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
-    global fwd_train_launches
+    return _launch_fwd_train(x_proj, h0, wh, bh, reverse)
+
+
+def _launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=None):
+    """Launches `gru_fwd_train` on `plan` (default: `fwd_train_plan` of the
+    shapes): the resident kernel of `gru_fwd.cu` or the general one of
+    `gru_train.cu`."""
+    global fwd_train_launches, last_fwd_train_plan
     _check(x_proj, h0, wh, bh)
     rows, steps, g = x_proj.shape
     hidden = g // 3
@@ -382,16 +442,25 @@ def gru_recurrence_train(
     saved = torch.empty((rows, steps, 4 * hidden), dtype=torch.float32, device=x_proj.device)
     if rows == 0:
         return out, h_last, saved
-    lib = _train_lib()
+    if plan is None:
+        max_clusters = _max_clusters(x_proj.device, hidden, save=True)
+        plan = fwd_train_plan(rows, steps, hidden, _num_sms(x_proj.device), max_clusters)
+    elif plan.path == "cluster":
+        _max_clusters(x_proj.device, hidden, save=True)  # allows the cluster size on this device
+    if plan.path == "general":
+        lib, launch, error_string = _train_lib(), "trunet_gru_fwd_train", "trunet_gru_train_error_string"
+    else:
+        lib, launch, error_string = _lib(), "trunet_gru_fwd_train_resident", "trunet_cuda_error_string"
     with torch.cuda.device(x_proj.device):
-        err = lib.trunet_gru_fwd_train(
+        err = getattr(lib, launch)(
             x_proj.data_ptr(), h0.data_ptr(), wh.data_ptr(), bh.data_ptr(),
             out.data_ptr(), h_last.data_ptr(), saved.data_ptr(),
-            rows, steps, hidden, int(reverse), rows_per_block(rows, hidden, _num_sms(x_proj.device)),
+            rows, steps, hidden, int(reverse), plan.rows_per_tile,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, "gru_fwd_train", "trunet_gru_train_error_string")
+    _raise_on_error(lib, err, f"gru_fwd_train {plan}", error_string)
     fwd_train_launches += 1
+    last_fwd_train_plan = plan
     return out, h_last, saved
 
 
