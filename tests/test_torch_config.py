@@ -64,7 +64,10 @@ def test_importing_the_port_loads_no_jax():
         "tinyrecurrentunet_torch.ops.cuda_gru, tinyrecurrentunet_torch.weights, "
         "tinyrecurrentunet_torch.losses, tinyrecurrentunet_torch.train.loop, "
         "tinyrecurrentunet_torch.train.checkpoint, tinyrecurrentunet_torch.data.dataset, "
-        "tinyrecurrentunet_torch.data.loader, tinyrecurrentunet_torch.utils.metrics; "
+        "tinyrecurrentunet_torch.data.loader, tinyrecurrentunet_torch.utils.metrics, "
+        "tinyrecurrentunet_torch.infer.streaming, tinyrecurrentunet_torch.infer.multistream, "
+        "tinyrecurrentunet_torch.infer.stream, tinyrecurrentunet_torch.infer.soak, "
+        "tinyrecurrentunet_torch.runtime; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tinyrecurrentunet_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

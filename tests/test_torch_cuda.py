@@ -366,3 +366,131 @@ def test_fwd_train_path_matches_plain_version(card, rows, steps, hidden, path, r
     want = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
     for a, b in zip(got, want):  # out, h_T, saved
         torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
+
+
+# gru_fwd at the streaming path's launch shapes (rows x T x H): the
+# flagship's FGRU and TGRU at one hop, at 4 hops a call and at 64 streams,
+# large16k's at one hop
+STREAMING_SHAPES = [
+    (1, 16, 64, "registers"), (16, 1, 128, "registers"),
+    (4, 16, 64, "registers"), (16, 4, 128, "registers"),
+    (64, 16, 64, "registers"), (1024, 1, 128, "registers"),
+    (1, 16, 256, "cluster"), (16, 1, 512, "cluster"),
+]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows,steps,hidden,path", STREAMING_SHAPES)
+def test_kernel_at_streaming_shapes(card, rows, steps, hidden, path, reverse):
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, 7 * rows + steps, card)
+    before = cuda_gru.launch_counts()
+    out, h_last = cuda_gru.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
+    torch.cuda.synchronize()
+    after = cuda_gru.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**{k: 0 for k in after}, "gru_fwd": 1}
+    assert cuda_gru.last_fwd_plan.path == path
+    ref_out, ref_h = gru_ops.gru_recurrence(x_proj, h0, wh, bh, reverse=reverse)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=ATOL)
+    torch.testing.assert_close(h_last, ref_h, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_eval_mode_gru_on_card_keeps_its_gradients(card, bidirectional):
+    """An eval-mode GRU on the card takes the trainable recurrence where a
+    gradient is wanted: the gradients of the input, wi and wh equal the
+    CPU's to 1e-4 relative to the largest entry (dWh summed on the tensor
+    cores, as in training). Under inference_mode it launches gru_fwd only."""
+    import copy
+
+    from tinyrecurrentunet_torch.models.blocks import GRU, init_parameters
+
+    gru_cpu = init_parameters(GRU(24, 64, bidirectional=bidirectional), torch.Generator().manual_seed(0)).eval()
+    gru_card = copy.deepcopy(gru_cpu).to(card)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((40, 16, 24)).astype(np.float32)
+    g = rng.standard_normal((40, 16, 64 * (2 if bidirectional else 1))).astype(np.float32)
+
+    def grads(gru, device):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        out, h = gru(xt)
+        loss = (out * torch.from_numpy(g).to(device)).sum() + h.sum()
+        return [t.cpu() for t in torch.autograd.grad(loss, [xt, gru.wi_fwd, gru.wh_fwd])]
+
+    dirs = 2 if bidirectional else 1
+    before = cuda_gru.launch_counts()
+    got = grads(gru_card, card)
+    torch.cuda.synchronize()
+    after = cuda_gru.launch_counts()
+    assert after["gru_fwd_train"] - before["gru_fwd_train"] == dirs
+    assert after["gru_bwd"] - before["gru_bwd"] == dirs
+    assert after["gru_fwd"] == before["gru_fwd"]
+    for a, b in zip(got, grads(gru_cpu, "cpu")):
+        assert _rel(a, b) <= 1e-4
+    before = cuda_gru.launch_counts()
+    with torch.inference_mode():
+        gru_card(torch.from_numpy(x).to(card))
+    after = cuda_gru.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**{k: 0 for k in after}, "gru_fwd": dirs}
+
+
+def _tiny_streaming():
+    import dataclasses
+
+    from tinyrecurrentunet_torch.config import Config, FeaturizerConfig, NetworkConfig
+    from tinyrecurrentunet_torch.infer.denoise import random_state_dict
+
+    tiny = dict(encoder=((8, 5, 2), (16, 3, 1), (16, 5, 2), (16, 3, 2)), fgru_hidden=64, fgru_out=8,
+                tgru_hidden=128, tgru_out=8, decoder=((8, 3, 2), (8, 5, 2), (8, 3, 1), (8, 5, 2)))
+    cfg = dataclasses.replace(Config(), featurizer=FeaturizerConfig(sample_rate=16000),
+                              network=NetworkConfig(**tiny))
+    audio = (0.2 * np.sin(2 * np.pi * 220 * np.arange(8000) / 16000)
+             + 0.05 * np.random.default_rng(0).standard_normal(8000)).astype(np.float32)
+    return cfg, random_state_dict(cfg), audio
+
+
+def test_streaming_step_launches_three_gru_fwd(card):
+    """One hop (and one call of 4 hops) of the streaming step launches
+    gru_fwd three times (FGRU forward and reverse, TGRU) and nothing else."""
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    for chunk in (1, 4):
+        den = StreamingDenoiser(cfg, sd, chunk_frames=chunk, device=card)
+        state = den.init_state()
+        den.process_block(state, audio[: den.hop])  # build the kernels first
+        cuda_gru.reset_launch_counts()
+        out, state = den.process_block(state, audio[den.hop : 2 * den.hop])
+        torch.cuda.synchronize()
+        assert cuda_gru.launch_counts() == {**{k: 0 for k in cuda_gru.launch_counts()}, "gru_fwd": 3}
+        assert out.device.type == "cuda" and out.shape == (den.hop,)
+
+
+@pytest.mark.parametrize("chunk_frames", [1, 4])
+def test_streaming_on_card_matches_cpu(card, chunk_frames):
+    """Card against CPU at 2e-4 (chip_smoke.py's DENOISE_ATOL: cuFFT and the
+    CPU FFT differ in the last bit, which the unwrapped phase carries into
+    the demod features)."""
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    got, _ = StreamingDenoiser(cfg, sd, chunk_frames=chunk_frames, device=card).process(audio)
+    want, _ = StreamingDenoiser(cfg, sd, chunk_frames=chunk_frames, device="cpu").process(audio)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_multistream_on_card_matches_cpu_and_single_streams(card):
+    """Card against CPU at 2e-4 (as above); each stream of the batch against
+    its own single-stream run on the card at 2e-4: cuDNN may take another
+    convolution algorithm at another batch size (chip_smoke.py measured
+    1.3e-6 at the flagship's width, 64 streams)."""
+    from tinyrecurrentunet_torch.infer.multistream import MultiStreamDenoiser
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    streams = np.stack([audio[:4096], audio[-4096:], np.zeros(4096, np.float32)])
+    got, _ = MultiStreamDenoiser(cfg, sd, 3, chunk_frames=2, device=card).process(streams)
+    want, _ = MultiStreamDenoiser(cfg, sd, 3, chunk_frames=2, device="cpu").process(streams)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+    single = StreamingDenoiser(cfg, sd, chunk_frames=2, device=card)
+    for i in range(3):
+        np.testing.assert_allclose(got[i], single.process(streams[i])[0], rtol=0, atol=2e-4)

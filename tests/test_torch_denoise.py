@@ -100,9 +100,14 @@ def test_cli_denoises_a_wav_on_cpu(tmp_path, denoisers):
 
 
 def test_unported_selectors_raise(tmp_path):
+    """The `max` and integer selectors read the port's checkpoints
+    (tests/test_torch_denoise_dir.py); where the selector names none, as
+    under artifacts/, they raise FileNotFoundError, as the JAX Denoiser does,
+    and create nothing there."""
     cfg = tload_config(_cli_config(tmp_path))
     for selector in ("max", "1000", None):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(FileNotFoundError, match="no checkpoint for selector"):
             tdenoise.Denoiser.from_checkpoint(cfg, selector, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdenoise.denoise_directory(cfg)
+    with pytest.raises(FileNotFoundError, match="no checkpoint for selector"):
+        tdenoise.denoise_directory(cfg, device="cpu")
+    assert not os.path.exists(os.path.join(ARTIFACT, "checkpoint"))

@@ -253,3 +253,35 @@ def test_dw_sum_refuses_a_misaligned_part_without_launching():
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         cuda_gru.dw_sum(part, 4)
     assert cuda_gru.launch_counts() == before
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_eval_mode_gru_has_the_gradients_of_train_mode(bidirectional):
+    """A GRU has nothing that eval mode changes, so where a gradient is
+    wanted it takes the trainable recurrence in either mode: the gradients
+    of eval and train mode are bit-equal (the same plain versions on the
+    CPU). Without one (no_grad, inference_mode) it takes the inference
+    recurrence, whose outputs are the same to float32 rounding (1e-6)."""
+    from tinyrecurrentunet_torch.models.blocks import GRU, init_parameters
+
+    gru = init_parameters(GRU(6, 8, bidirectional=bidirectional), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 6)).astype(np.float32)).requires_grad_()
+    h0 = torch.from_numpy(rng.standard_normal((3, 8)).astype(np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((3, 5, 8 * (2 if bidirectional else 1))).astype(np.float32))
+
+    def grads(train: bool):
+        out, h = gru.train(train)(x, h0)
+        assert type(out.grad_fn).__name__ in ("GRURecurrenceBackward", "CatBackward0")
+        return torch.autograd.grad((out * g).sum() + h.sum(), [x, h0, *gru.parameters()])
+
+    for a, b in zip(grads(False), grads(True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with torch.inference_mode():
+        out_inf, h_inf = gru.eval()(x, h0)
+    with torch.no_grad():
+        out_ng, _ = gru(x, h0)
+    out, h = gru(x, h0)
+    assert out_ng.grad_fn is None
+    torch.testing.assert_close(out_inf, out.detach(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(h_inf, h.detach(), rtol=0, atol=1e-6)

@@ -13,7 +13,12 @@ nothing of the JAX package. Public functions keep the JAX package's layouts: spe
 - `ops/`: the plain PyTorch GRU, the hand-written CUDA recurrence kernel
   (`ops/csrc/gru_fwd.cu`) and its wrapper, conv helpers, the kernel build.
 - `models/`: TRUNet blocks, the network and the PHM head.
-- `infer/denoise.py`: the offline `Denoiser` and its CLI.
+- `infer/`: the offline `Denoiser` and its CLI (`denoise.py`), the
+  streaming denoisers (`streaming.py`, `multistream.py`), the stream CLI
+  (`stream.py`) and the wall-clock soak (`soak.py`).
+- `runtime/`: ctypes bindings of the C++ stream host under `cpp/`, built at
+  first use into `build/trunet_host/`.
+- `data/`, `losses/`, `train/`: datasets, losses and float32 training.
 
 Entry points run on `cuda` unless the caller asks for `cpu`; asked for
 `cuda` without a card they raise.

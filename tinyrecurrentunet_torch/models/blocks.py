@@ -14,10 +14,11 @@ batch mean and the biased batch variance E[x^2] - E[x]^2, clipped at 0, and
 updates the running statistics as ra = 0.99 ra + 0.01 batch.
 
 The GRU projects its inputs with one matmul and hands the recurrence to
-`ops.cuda_gru`: in eval mode `gru_recurrence` (kernel `gru_fwd`, no
-gradient on the card), in training mode the autograd Function
-`GRURecurrence` (kernels `gru_fwd_train` and the BPTT). Tensors on the CPU
-run the plain PyTorch versions.
+`ops.cuda_gru`: where a gradient is wanted (grad enabled and an input or
+weight of the recurrence requires one), in either mode, the autograd
+Function `GRURecurrence` (kernels `gru_fwd_train` and the BPTT); otherwise,
+as under `torch.inference_mode()` or `no_grad`, `gru_recurrence` (kernel
+`gru_fwd`). Tensors on the CPU run the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -177,7 +178,7 @@ class GRU(nn.Module):
     def _direction(self, x, h0, d: str, reverse: bool):
         x_proj = gru_project_inputs(x, getattr(self, f"wi_{d}"), getattr(self, f"bi_{d}"))
         args = (x_proj.contiguous(), h0, getattr(self, f"wh_{d}"), getattr(self, f"bh_{d}"))
-        if self.training:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
             return cuda_gru.GRURecurrence.apply(*args, reverse)
         return cuda_gru.gru_recurrence(*args, reverse=reverse)
 

@@ -38,6 +38,18 @@ def gru_cell(x_proj_t: torch.Tensor, h: torch.Tensor, wh: torch.Tensor, bh: torc
     return (1.0 - z) * n + z * h
 
 
+def gru_step(
+    x_t: torch.Tensor,
+    h: torch.Tensor,
+    wi: torch.Tensor,
+    wh: torch.Tensor,
+    bi: torch.Tensor,
+    bh: torch.Tensor,
+) -> torch.Tensor:
+    """One streaming GRU step from a raw input frame x_t (B, D) -> h' (B, H)."""
+    return gru_cell(gru_project_inputs(x_t, wi, bi), h, wh, bh)
+
+
 def gru_recurrence(
     x_proj: torch.Tensor,
     h0: torch.Tensor,

@@ -1,22 +1,35 @@
 """The featurizer: waveform <-> (..., T, F, C) feature tensors.
 
-Counterpart of `tinyrecurrentunet_tpu/signal/features.py` (offline path):
-rectangular-window STFT, then the channels in config order — normalised dB
-log-magnitude clamped to [-1, 1], PCEN, and sin/cos of the phase unwrapped
-along time (axis -2).
+Counterpart of `tinyrecurrentunet_tpu/signal/features.py`: rectangular-window
+STFT, then the channels in config order — normalised dB log-magnitude
+clamped to [-1, 1], PCEN, and sin/cos of the phase unwrapped along time
+(axis -2). The streaming path (`init_state`, `step_from_spec_frame`) takes
+one spectrum frame at a time and carries the unwrap and PCEN state in a
+`FeaturizerState`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from tinyrecurrentunet_torch.config import FeaturizerConfig
-from tinyrecurrentunet_torch.signal.pcen import pcen
-from tinyrecurrentunet_torch.signal.phase import demod_phase
+from tinyrecurrentunet_torch.signal.pcen import pcen, pcen_step
+from tinyrecurrentunet_torch.signal.phase import demod_phase, unwrap_step
 from tinyrecurrentunet_torch.signal.stft import istft as _istft
 from tinyrecurrentunet_torch.signal.stft import stft as _stft
+
+
+class FeaturizerState(NamedTuple):
+    """Streaming carry of the featurizer, one entry per sequential op; the
+    (F,) tensors may carry leading stream axes (..., F), frame_count (...)."""
+
+    prev_phase: torch.Tensor  # raw phase of the previous frame
+    unwrap_corr: torch.Tensor  # accumulated unwrap correction
+    pcen_m: torch.Tensor  # PCEN smoother state
+    frame_count: torch.Tensor  # int32, 0 before the first frame
 
 
 def amp_to_db(magnitude: torch.Tensor, ref_level_db: float = 25.0) -> torch.Tensor:
@@ -84,6 +97,50 @@ class Featurizer:
             for name in self.config.channels
         ]
         return torch.stack(chans, dim=-1)
+
+    def init_state(self, streams: tuple = (), device=None) -> FeaturizerState:
+        """The state before the first frame, for `streams` leading axes."""
+        shape = tuple(streams) + (self.config.num_freqs,)
+        return FeaturizerState(
+            prev_phase=torch.zeros(shape, device=device),
+            unwrap_corr=torch.zeros(shape, device=device),
+            pcen_m=torch.zeros(shape, device=device),
+            frame_count=torch.zeros(tuple(streams), dtype=torch.int32, device=device),
+        )
+
+    def step_from_spec_frame(self, spec_t: torch.Tensor, state: FeaturizerState):
+        """One streaming step from a complex spectrum frame (..., F).
+
+        Returns (features_t (..., F, C), new state). Fed the offline STFT
+        frames one at a time it gives `features_from_spec`, up to the
+        rounding of the unwrap's running sum.
+        """
+        c = self.config
+        magnitude = spec_t.abs()
+        raw_phase = spec_t.angle()
+        # the first frame passes through: no previous frame to unwrap against
+        started = (state.frame_count > 0)[..., None]
+        prev_phase = torch.where(started, state.prev_phase, raw_phase)
+        unwrapped, new_corr = unwrap_step(raw_phase, prev_phase, state.unwrap_corr)
+        pcen_m = state.pcen_m
+        chans = []
+        for name in c.channels:
+            if name == "logmag":
+                chans.append(norm_db(amp_to_db(magnitude, c.ref_level_db), c.min_level_db))
+            elif name == "pcen":
+                out, pcen_m = pcen_step(
+                    magnitude, state.pcen_m, eps=c.pcen_eps, s=c.pcen_s,
+                    alpha=c.pcen_alpha, delta=c.pcen_delta, r=c.pcen_r,
+                )
+                chans.append(out)
+            elif name == "real_demod":
+                chans.append(torch.sin(unwrapped))
+            elif name == "imag_demod":
+                chans.append(torch.cos(unwrapped))
+            else:
+                raise ValueError(name)
+        new_state = FeaturizerState(raw_phase, new_corr, pcen_m, state.frame_count + 1)
+        return torch.stack(chans, dim=-1), new_state
 
     def __call__(self, audio: torch.Tensor) -> torch.Tensor:
         """Waveform (..., L) -> features (..., T, F, C)."""

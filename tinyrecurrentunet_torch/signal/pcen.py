@@ -56,3 +56,22 @@ def pcen(
     """PCEN of a (..., T, F) magnitude; `dim` is the time axis."""
     m = smoother(x, s, dim)
     return (x / torch.pow(m + eps, alpha) + delta) ** r - delta**r
+
+
+def pcen_step(
+    x_t: torch.Tensor,
+    m_prev: torch.Tensor,
+    eps: float = 1e-6,
+    s: float = 0.025,
+    alpha: float = 0.98,
+    delta: float = 2.0,
+    r: float = 0.5,
+):
+    """One streaming PCEN step on a (..., F) frame: returns (pcen_t, m_t).
+
+    Counterpart of `pcen_step` in `tinyrecurrentunet_tpu/signal/pcen.py`.
+    From m_prev = 0 the first frame gives M[0] = s x[0], as `pcen` does.
+    """
+    m_t = (1.0 - s) * m_prev + s * x_t
+    out = (x_t / torch.pow(m_t + eps, alpha) + delta) ** r - delta**r
+    return out, m_t

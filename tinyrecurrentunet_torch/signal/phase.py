@@ -70,6 +70,25 @@ def unwrap(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cat([p.narrow(dim, 0, 1), rest], dim=dim)
 
 
+def unwrap_step(phase_t: torch.Tensor, prev_phase: torch.Tensor, prev_corr: torch.Tensor):
+    """One streaming step of `unwrap` along time, on (..., F) frames.
+
+    Counterpart of `unwrap_step` in `tinyrecurrentunet_tpu/signal/phase.py`:
+    the correction of this frame is added to the running sum `prev_corr`.
+    Returns (unwrapped phase_t, new correction). The running sum takes its
+    additions one frame at a time, so over many frames it rounds otherwise
+    than `unwrap`'s blocked cumsum (tests/test_torch_streaming.py).
+    """
+    period = torch.tensor(2.0 * math.pi, dtype=phase_t.dtype).item()
+    interval = torch.tensor(math.pi, dtype=phase_t.dtype).item()
+    dd = phase_t - prev_phase
+    ddmod = torch.remainder(dd + interval, period) - interval
+    ddmod = torch.where((ddmod == -interval) & (dd > 0), interval, ddmod)
+    ph_correct = torch.where(dd.abs() < interval, torch.zeros_like(dd), ddmod - dd)
+    new_corr = prev_corr + ph_correct
+    return phase_t + new_corr, new_corr
+
+
 def demod_phase(phase: torch.Tensor, dim: int = -2):
     """(sin(unwrap), cos(unwrap)) along the time axis `dim`
     (`real_demod = sin`, `imag_demod = cos`)."""

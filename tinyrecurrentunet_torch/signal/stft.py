@@ -44,8 +44,15 @@ def _window(window, n_fft, like: torch.Tensor) -> torch.Tensor:
     return _pad_window(window.to(like.dtype), n_fft)
 
 
-def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
-    """(..., T, n_fft) frames -> (..., (T-1)*hop + n_fft) by summation."""
+def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """Slice a (..., L) signal into (..., T, n_fft) frames, T = 1 + (L-n_fft)//hop
+    (a view)."""
+    return x.unfold(-1, n_fft, hop_length)
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int, length: int | None = None) -> torch.Tensor:
+    """Inverse of frame_signal: (..., T, n_fft) frames -> (..., (T-1)*hop +
+    n_fft) by summation, cut to the first `length` samples if given."""
     lead = frames.shape[:-2]
     num_frames, n_fft = frames.shape[-2:]
     total = (num_frames - 1) * hop_length + n_fft
@@ -53,7 +60,8 @@ def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     out = F.fold(
         cols, output_size=(1, total), kernel_size=(1, n_fft), stride=(1, hop_length)
     )
-    return out.reshape(lead + (total,))
+    out = out.reshape(lead + (total,))
+    return out if length is None else out[..., :length]
 
 
 def stft(
@@ -70,7 +78,7 @@ def stft(
     if center:
         pad = n_fft // 2
         x = F.pad(x[:, None], (pad, pad), mode=pad_mode)[:, 0]
-    frames = x.unfold(-1, n_fft, hop_length)  # (N, T, n_fft)
+    frames = frame_signal(x, n_fft, hop_length)  # (N, T, n_fft)
     if window is not None:
         frames = frames * _pad_window(window.to(x.dtype), n_fft)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)

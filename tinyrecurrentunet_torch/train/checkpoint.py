@@ -33,12 +33,13 @@ class CheckpointManager:
 
     def __init__(self, log_directory: str, exp_path: str):
         self.directory = checkpoint_dir(log_directory, exp_path)
-        os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
     def all_steps(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
         names = (_CKPT_NAME.match(n) for n in os.listdir(self.directory))
         return sorted(int(m.group(1)) for m in names if m)
 
@@ -50,6 +51,7 @@ class CheckpointManager:
             "iter": step,
             "training_time_seconds": training_time_seconds,
         }
+        os.makedirs(self.directory, exist_ok=True)
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
@@ -61,15 +63,21 @@ class CheckpointManager:
             return steps[-1] if steps else -1
         return int(selector)
 
+    def load(self, selector: str | int = "max", device="cpu") -> dict | None:
+        """The payload of the checkpoint `selector` names, its tensors on
+        `device`, or None when there is no such checkpoint."""
+        step = self.resolve_step(selector)
+        if step < 0 or step not in self.all_steps():
+            return None
+        return torch.load(self._path(step), map_location=device, weights_only=True)
+
     def restore(self, state: TrainState, selector: str | int = "max"):
         """Load into `state` in place. Returns (state, iteration,
         training_time_seconds), or (state, -1, 0) when there is nothing to
         restore (a fresh start)."""
-        step = self.resolve_step(selector)
-        if step < 0 or step not in self.all_steps():
+        payload = self.load(selector, next(state.model.parameters()).device)
+        if payload is None:
             return state, -1, 0
-        device = next(state.model.parameters()).device
-        payload = torch.load(self._path(step), map_location=device, weights_only=True)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["updates"])
