@@ -60,7 +60,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. score the flagship's quality on the card, float32, bf16 and the int8
    pack, on the 16-file procedural testset (seed 7,000,000) with the
    metrics on the host: float32 SI-SDR within 0.05 dB of 12.578, bf16 within
-   0.05 dB of float32, int8 within 0.05 dB of float32 less 0.019.
+   0.05 dB of float32, int8 within 0.05 dB of float32 less 0.019;
+9. drive training as users run it: (a) `train()` on config/proc16k.json as
+   shipped (bf16) on a 128-item procedural corpus and its 32-item validation
+   set, 3 steps at batch 64, launch counts around it (9 of each training
+   kernel, 3 gru_fwd for the validation pass at iteration 0), the device
+   corpus bit-equal to `dataset.get`; (b) `train()` with a profile
+   directory, 13 steps at batch 8 in float32, whose trace of steps 10-12
+   names each training kernel; (c) two ranks on this card under
+   torchrun (gloo), `scripts/torch_dp_step.py`, one step at 8 clips a rank
+   in float32 against the single-process card step on the same 16 clips:
+   loss terms within 1e-5, grad_norm within 1e-4 relative, parameters by
+   phase 5's measure, the ranks bit-equal, 3 launches of each training
+   kernel a rank, and both steps timed; (d) `export_pretrained` of (a)'s
+   checkpoint served by a card Denoiser, bit-equal to one built from (a)'s
+   model (3 gru_fwd; cuDNN's deterministic algorithms), the npz holding the
+   model's parameters and statistics bit for bit; (e) `train/scaling.py` in bf16 at batch 32, 64 and 128
+   (step ms, audio-s per s, peak memory, MFU beside the card's name and
+   power limit); (f) phase 8's oracle report.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -189,6 +206,34 @@ BF16_LOSS_RTOL = 2e-3
 # grad_norm, the same pairs (CPU: <= 1.6e-2 bf16 vs float32, <= 8.5e-3 moved input)
 BF16_NORM_RTOL = 0.05
 SERVING_CALLS = 20  # denoise calls timed per serving dtype (phase 8)
+# Phase 9: the procedural corpus and steps of the bf16 run; the clips a rank
+# of the 2-rank step (float32); its launcher's time limit; the scaling rungs.
+PROC_ITEMS = 128
+PROC_STEPS = 3
+DP_BATCH = 8
+DP_TIMEOUT_S = 300
+SCALING_BATCHES = (32, 64, 128)
+# The 2-rank step against the single-process step on the same clips, both on
+# the card in float32: the same arithmetic but for the order of the global
+# sums (BatchNorm's statistics and the loss's reductions across ranks, the
+# gradients' all-reduce) and cuDNN's choice at batch 8 against 16. On the
+# CPU at the tests' width: loss terms 6.4e-7, grad_norm 9.6e-6
+# (tests/test_torch_parallel.py); on the card at 2 x 8 clips: 7.7e-8 and
+# 2.6-3.3e-5, at 4 cards x 16 clips (scripts/torch_dp_cards.py, nccl): 9.3e-8
+# and 6.2e-7-1.4e-6.
+DP_LOSS_RTOL = 1e-5
+DP_NORM_RTOL = 1e-4
+# Of the single-process step's gradient entries of at least ADAM_SIGN_TAU,
+# the share the data-parallel step matches in sign and size (1.0 and 0.9994
+# at the tests' width on the CPU, 2 and 4 ranks; 0.9991 at 4 cards x 16 clips)
+DP_SIGN_AGREEMENT = 0.99
+# The training kernels' names in a trace (any path of each)
+TRAINING_KERNEL_NAMES = {
+    "gru_fwd_train": r"gru_fwd_resident_kernel|gru_fwd_train_kernel",
+    "gru_bwd": r"gru_bwd_resident_kernel|gru_bwd_kernel",
+    "gru_dw_partial": r"gru_dw_mma_kernel|gru_dw_partial_kernel",
+    "gru_dw_sum": r"gru_dw_sum_kernel",
+}
 # Quality (phase 8): the flagship on the 16-file procedural testset that
 # BENCH_r05.json scored (seed 7,000,000, 4 s files). float32 within
 # QUALITY_SI_SDR_ATOL of its 12.578 dB, bf16 within it of float32 (the
@@ -240,7 +285,12 @@ def device_ms(fn, name: str | None = None, iters: int = 10, launches: int | None
     7 of 20 missing, three readings in a row, on one machine), and such a
     reading would be low. It is taken again, up to three times in all, and
     then this raises. The window is padded with PROFILE_PAD_S of idle time
-    at each end, in case records near its edges are what goes missing."""
+    at each end, in case records near its edges are what goes missing. A
+    call whose kernels are not the port's (`launches` None: a library call)
+    may launch more on some calls than on the single call counted (cuDNN's
+    training-mode GRU forward was seen launching 39 kernels over 10 calls of
+    3, three readings in a row, on one machine): its reading holds with at
+    least `iters` times that count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -262,7 +312,7 @@ def device_ms(fn, name: str | None = None, iters: int = 10, launches: int | None
         per_call = launches if launches is not None else read(1)[0]
         count, total = read(iters)
         readings.append((per_call, count))
-        if per_call > 0 and count == iters * per_call:
+        if per_call > 0 and (count == iters * per_call or (launches is None and count > iters * per_call)):
             return total / iters / 1e3
         log(f"[device_ms] {name or 'any kernel'}: {count} kernel records of {iters} x {per_call}, taken again")
     raise AssertionError(f"torch.profiler: kernel records of {name or 'any kernel'} over {iters} calls "
@@ -681,6 +731,20 @@ def batch_of(dataset, count: int, device):
     return [torch.from_numpy(np.stack([x[k] for x in items])).to(device) for k in (0, 1)]
 
 
+def phase_workdir(name: str) -> str:
+    """An empty scratch directory of the build tree, where a config's
+    relative log directory (./ckpt) resolves, so no earlier run is resumed."""
+    workdir = os.path.join(REPO, "build", name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    return workdir
+
+
+def with_batch(cfg, batch: int):
+    opt = dataclasses.replace(cfg.train.optimization, batch_size_per_device=batch)
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, optimization=opt))
+
+
 def compare_train_step(cfg, dataset):
     """One step at batch 4 from the same weights and batch: on the card and
     on the CPU in float32, and for each a float64 step on the CPU that reads
@@ -691,8 +755,8 @@ def compare_train_step(cfg, dataset):
     from tinyrecurrentunet_torch.train.state import create_train_state
     from tinyrecurrentunet_torch.train.step import make_train_step
 
-    opt = dataclasses.replace(cfg.train.optimization, batch_size_per_device=4)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, optimization=opt))
+    cfg = with_batch(cfg, 4)
+    opt = cfg.train.optimization
     runs = {}
     for name, device, dtype, features_on in (
         ("card", "cuda", torch.float32, None), ("cpu", "cpu", torch.float32, None),
@@ -770,11 +834,7 @@ def train_main_path(cfg, cuda_gru):
         raise AssertionError("proc16k trains on batches of 64 clips of 2 s")
     dataset = SyntheticPairDataset(num_items=2 * TRAIN_BATCH, length_sec=cfg.trainset.crop_length_sec,
                                    sample_rate=cfg.trainset.sample_rate)
-    # the config's log directory (./ckpt) resolves inside a scratch directory
-    # of the build tree, so an earlier run's checkpoints are never resumed
-    workdir = os.path.join(REPO, "build", "chip_smoke_train")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
+    workdir = phase_workdir("chip_smoke_train")
     cwd = os.getcwd()
     os.chdir(workdir)
     # PyTorch's default for cuDNN: train() must turn TF32 off itself
@@ -1106,9 +1166,7 @@ def bf16_training_path(cfg, f32_cfg, cuda_gru) -> dict:
         raise AssertionError("config/proc16k.json ships train_compute_dtype bfloat16")
     dataset = SyntheticPairDataset(num_items=2 * TRAIN_BATCH, length_sec=cfg.trainset.crop_length_sec,
                                    sample_rate=cfg.trainset.sample_rate)
-    workdir = os.path.join(REPO, "build", "chip_smoke_train_bf16")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
+    workdir = phase_workdir("chip_smoke_train_bf16")
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
@@ -1236,7 +1294,7 @@ def quality_path(cfg) -> dict:
                                   seed=QUALITY_SEED, enhanced_dir=os.path.join(work, name))
         results[name] = {"enhanced": result["enhanced"], "noisy": result["noisy_baseline"],
                          "improvement": result["improvement"], "per_noise_kind": result["per_noise_kind"],
-                         "s": time.perf_counter() - t0}
+                         "oracle": result["oracle"], "s": time.perf_counter() - t0}
         log(f"[quality] {name}: {json.dumps(results[name])}")
     f32 = results["float32"]["enhanced"]["si_sdr"]
     report = {"si_sdr_float32": f32, "si_sdr_bf16": results["bfloat16"]["enhanced"]["si_sdr"],
@@ -1251,6 +1309,247 @@ def quality_path(cfg) -> dict:
     if not abs(report["int8_delta_db"] + QUALITY_INT8_GAP) <= QUALITY_SI_SDR_ATOL:
         raise AssertionError(f"int8 - float32 SI-SDR {report['int8_delta_db']:.4f} dB, gap {QUALITY_INT8_GAP}")
     return {**report, "serving_latency": latency, "runs": results}
+
+
+def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
+    """Phase 9 (a) and (d): train() on config/proc16k.json as shipped (bf16)
+    on a PROC_ITEMS-item procedural corpus and its 32-item validation set,
+    PROC_STEPS steps at batch 64, launch counts around it; the device corpus
+    against dataset.get; then export_pretrained on its checkpoint, served by
+    a card Denoiser beside one built from the trained model."""
+    from tinyrecurrentunet_torch.data import ProceduralSpeechDataset
+    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+    from tinyrecurrentunet_torch.train import export_pretrained
+    from tinyrecurrentunet_torch.train.loop import train, upload_corpus
+    from tinyrecurrentunet_torch.weights import load_pretrained
+
+    length = cfg.trainset.crop_length_sec
+    t0 = time.perf_counter()
+    dataset = ProceduralSpeechDataset(num_items=PROC_ITEMS, length_sec=length, sample_rate=cfg.trainset.sample_rate)
+    valid = ProceduralSpeechDataset(num_items=32, length_sec=length, sample_rate=cfg.trainset.sample_rate,
+                                    seed=6_000_000)
+    workdir = phase_workdir("chip_smoke_proc")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        cuda_gru.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, metrics = train(cfg, dataset=dataset, max_iters=PROC_STEPS, valid_dataset=valid, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        counts = cuda_gru.launch_counts()
+        export_dir = os.path.join(workdir, "export")
+        export_pretrained.main(["-c", CONFIG, "--out", export_dir, "--device", "cuda"])
+        # iteration 0 is the logged one (iters_per_valid 500), with the validation loss
+        with open(os.path.join(workdir, "ckpt", cfg.train.exp_path, "logs", "metrics.jsonl")) as f:
+            first = json.loads(f.readline())
+    finally:
+        os.chdir(cwd)
+    log(f"[proc-train] {PROC_STEPS} steps of train() on {PROC_ITEMS} procedural items, bf16, batch "
+        f"{cfg.train.optimization.batch_size_per_device}: {train_s:.2f} s (synthesis included), launches {counts}, "
+        f"{json.dumps(metrics)}")
+    # 3 launches of each training kernel a step; the validation pass at
+    # iteration 0 (iters_per_valid divides 0) runs in eval mode under no_grad:
+    # 3 gru_fwd
+    expected = {k: 3 * PROC_STEPS for k in counts}
+    expected["gru_fwd"] = 3
+    if counts != expected:
+        raise AssertionError(f"launches in {PROC_STEPS} procedural train steps: {counts}, expected {expected}")
+    logged = [first["Train/Train-Loss"], first["Valid/Valid-Loss"], *metrics.values()]
+    log(f"[proc-train] iteration 0: loss {first['Train/Train-Loss']:.6f}, validation loss "
+        f"{first['Valid/Valid-Loss']:.6f} on 32 procedural items")
+    if not (np.isfinite(logged).all() and all(bool(torch.isfinite(p).all()) for p in state.model.parameters())):
+        raise AssertionError(f"procedural training produced non-finite values: {first} {metrics}")
+    corpus = upload_corpus(dataset, cfg.train.optimization.seed, "cuda")
+    for i in (0, 1, PROC_ITEMS // 2, PROC_ITEMS - 1):
+        for k in (0, 1):
+            if not np.array_equal(corpus[k][i].cpu().numpy(), dataset.get(i)[k]):
+                raise AssertionError(f"device corpus item {i} differs from dataset.get")
+    del corpus
+
+    trained = state.model.state_dict()
+    loaded = load_pretrained(export_dir, cfg)  # checks the artifact meta
+    if loaded.keys() != trained.keys() or not all(torch.equal(loaded[k].cuda(), trained[k]) for k in trained):
+        raise AssertionError("pretrained.npz does not hold the trained model's parameters and statistics bit for bit")
+    served = Denoiser(cfg, trained, device="cuda")
+    exported = Denoiser.from_pretrained(cfg, export_dir, device="cuda")
+    # cuDNN may take a nondeterministic algorithm for a transposed convolution
+    # (its backward-data kernels): the two waveforms are compared with
+    # deterministic algorithms, as the same Denoiser gives the same bits then
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = served(clip)
+        cuda_gru.reset_launch_counts()
+        got = exported(clip)
+        torch.cuda.synchronize()
+        export_counts = cuda_gru.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[export] pretrained.npz of iteration {PROC_STEPS - 1}: Denoiser launches {export_counts}, "
+        f"max abs diff to the trained model's Denoiser {float(np.abs(got - want).max()):.3e}")
+    if export_counts != {**{k: 0 for k in export_counts}, "gru_fwd": 3}:
+        raise AssertionError(f"exported Denoiser: {export_counts}, expected 3 gru_fwd and nothing else")
+    if not np.array_equal(got, want) or not np.isfinite(got).all():
+        raise AssertionError("the exported weights do not serve the trained model's waveform bit for bit")
+    summary = {"items": PROC_ITEMS, "steps": PROC_STEPS, "train_s": train_s, "phase_s": time.perf_counter() - t0,
+               "launches": counts, "metrics": metrics, "valid_loss_iteration_0": first["Valid/Valid-Loss"],
+               "export_launches": export_counts}
+    del state
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def profiled_training(f32_cfg) -> dict:
+    """Phase 9 (b): train() with profile_dir, 13 steps at batch 8 in float32;
+    the trace names the four training kernels."""
+    from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset
+    from tinyrecurrentunet_torch.train.loop import train
+
+    cfg = with_batch(f32_cfg, 8)
+    workdir = phase_workdir("chip_smoke_profile")
+    dataset = SyntheticPairDataset(num_items=16, length_sec=cfg.trainset.crop_length_sec,
+                                   sample_rate=cfg.trainset.sample_rate)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        train(cfg, dataset=dataset, max_iters=13, device="cuda", profile_dir=os.path.join(workdir, "trace"))
+        train_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    path = os.path.join(workdir, "trace", "trace_rank0.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(bool(re.search(pattern, k)) for k in kernels) for name, pattern in TRAINING_KERNEL_NAMES.items()}
+    row = {"steps": 13, "batch": 8, "train_s": train_s, "trace": os.path.relpath(path, REPO),
+           "trace_mb": os.path.getsize(path) / 1e6, "kernel_events": len(kernels), "training_kernels": found}
+    log(f"[profile] {json.dumps(row)}")
+    # steps 10, 11 and 12 launch each training kernel 9 times; the profiler
+    # has been seen to drop a few kernel records (device_ms), so each must
+    # be named, and the counts are logged
+    if not all(found.values()):
+        raise AssertionError(f"the --profile trace of steps 10-12 names the training kernels {found} times")
+    return row
+
+
+def data_parallel_step(f32_cfg, ranks: int = 2, batch: int = DP_BATCH, backend: str = "gloo",
+                       device: str = "cuda:0") -> tuple[dict, list]:
+    """Phase 9 (c): `ranks` ranks of scripts/torch_dp_step.py under torchrun,
+    by default two on this card (gloo: NCCL refuses two ranks on one card),
+    one train() step each at `batch` clips of 2 s, float32; against the
+    single-process step on the first card on the same ranks x batch clips in
+    rank-major order; then both steps timed (scripts/torch_dp_cards.py runs
+    one rank per card with nccl)."""
+    from tinyrecurrentunet_torch.config import config_to_dict
+    from tinyrecurrentunet_torch.train.schedule import linear_warmup_cosine_decay
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    cfg = with_batch(f32_cfg, batch)
+    workdir = phase_workdir("chip_smoke_dp")
+    cfg_path = os.path.join(workdir, "proc16k_f32.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config_to_dict(cfg), f)
+    out_dir = os.path.join(workdir, "out")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(ranks),
+           os.path.join(REPO, "scripts", "torch_dp_step.py"), "-c", cfg_path, "--out", out_dir,
+           "--items", str(ranks * batch), "--device", device, "--backend", backend, "--time_steps", "5"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=workdir, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    run_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the {ranks}-rank step failed ({res.returncode}):\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    runs = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            runs.append({**json.load(f), "arrays": dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))})
+    a = runs[0]
+    for b in runs[1:]:
+        for key in a["arrays"]:
+            if key.startswith(("param/", "buffer/", "grad/")) and not np.array_equal(a["arrays"][key], b["arrays"][key]):
+                raise AssertionError(f"ranks 0 and {b['rank']}: {key} differs after the step")
+        if a["metrics"] != b["metrics"]:
+            raise AssertionError(f"the ranks' metrics differ: {a['metrics']} {b['metrics']}")
+
+    clean, noisy = (torch.from_numpy(np.concatenate([run["arrays"][k] for run in runs])).cuda()
+                    for k in ("clean", "noisy"))
+    state = create_train_state(cfg, device="cuda")
+    step = make_train_step(cfg)
+    state, metrics = step(state, clean, noisy)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = torch.cat([p.grad.reshape(-1).double().cpu() for p in state.model.parameters()])
+    params = torch.cat([p.detach().reshape(-1).double().cpu() for p in state.model.parameters()])
+    dp_grads = torch.cat([torch.from_numpy(a["arrays"][f"grad/{n}"]).reshape(-1).double() for n in names])
+    dp_params = torch.cat([torch.from_numpy(a["arrays"][f"param/{n}"]).reshape(-1).double() for n in names])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        step(state, clean, noisy)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t1) / 5 * 1e3
+
+    opt = cfg.train.optimization
+    lr0 = linear_warmup_cosine_decay(opt.learning_rate, opt.n_iters, opt.lr_divider, opt.warmup_proportion)(0)
+    clear = grads.abs() >= ADAM_SIGN_TAU
+    exact = (torch.minimum(grads.abs(), dp_grads.abs()) >= ADAM_SIGN_TAU) & (grads.sign() == dp_grads.sign())
+    param_err = (dp_params - params).abs()
+    report = {
+        "ranks": ranks, "batch_per_rank": batch, "backend": backend, "device": [run["device"] for run in runs],
+        "loss_rel_err": {k: abs(a["metrics"][k] - metrics[k]) / abs(metrics[k]) for k in metrics if k != "grad_norm"},
+        "grad_norm_rel_err": abs(a["metrics"]["grad_norm"] - metrics["grad_norm"]) / metrics["grad_norm"],
+        "grad_rel_l2": rel_l2(dp_grads, grads), "param_exact_share": exact.double().mean().item(),
+        "clear_share": clear.double().mean().item(), "sign_agreement": (exact.sum() / clear.sum()).item(),
+        "param_max_abs_err_exact": param_err[exact].max().item(), "param_max_abs_err": param_err.max().item(),
+        "launches_per_rank": [run["launches"] for run in runs],
+        "step_ms_ranks": [run["step_ms"] for run in runs], "step_ms_single_process": single_ms,
+        "run_s": run_s, "metrics": a["metrics"],
+    }
+    log(f"[dp] {ranks}-rank step vs the single-process step on the same {ranks * batch} clips: {json.dumps(report)}")
+    for name, err in report["loss_rel_err"].items():
+        if not err <= DP_LOSS_RTOL:
+            raise AssertionError(f"{ranks}-rank step: loss term {name} rel err {err:.3e} > {DP_LOSS_RTOL:.0e}")
+    if not report["grad_norm_rel_err"] <= DP_NORM_RTOL:
+        raise AssertionError(f"{ranks}-rank step: grad_norm rel err {report['grad_norm_rel_err']:.3e} > "
+                             f"{DP_NORM_RTOL:.0e}")
+    # phase 5's share, or, where the single-process gradient itself has fewer
+    # entries of at least ADAM_SIGN_TAU (0.78 at 64 clips), DP_SIGN_AGREEMENT of those
+    exact_floor = min(PARAM_EXACT_SHARE, DP_SIGN_AGREEMENT * report["clear_share"])
+    if not report["param_exact_share"] >= exact_floor:
+        raise AssertionError(f"{ranks}-rank step: gradients of one sign on {report['param_exact_share']:.3f} "
+                             f"< {exact_floor:.3f}")
+    if not report["param_max_abs_err_exact"] <= PARAM_ATOL:
+        raise AssertionError(f"{ranks}-rank step: params {report['param_max_abs_err_exact']:.3e}")
+    if not report["param_max_abs_err"] <= 2 * lr0 + PARAM_ATOL:
+        raise AssertionError(f"{ranks}-rank step: params {report['param_max_abs_err']:.3e}")
+    for run in runs:
+        want = {k: 3 for k in run["launches"]}
+        want["gru_fwd"] = 0
+        if run["launches"] != want:
+            raise AssertionError(f"rank {run['rank']} launched {run['launches']}, expected {want}")
+    del state
+    torch.cuda.empty_cache()
+    return report, report["launches_per_rank"]
+
+
+def scaling_ladder(cfg) -> list:
+    """Phase 9 (e): train/scaling.py's rows in bf16 at SCALING_BATCHES."""
+    from tinyrecurrentunet_torch.train.scaling import measure_or_oom
+
+    card = nvidia_smi_line()
+    rows = []
+    for batch in SCALING_BATCHES:
+        row = measure_or_oom(cfg, batch, "bfloat16", reps_hi=3, reps_lo=1, device="cuda")
+        row["nvidia_smi"] = card
+        log(f"[scaling] {json.dumps(row)}")
+        if row.get("oom") or not np.isfinite(row["step_ms"]):
+            raise AssertionError(f"scaling rung at batch {batch}: {row}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def nvidia_smi_line() -> str:
@@ -1437,6 +1736,18 @@ def main() -> int:
     quality = quality_path(cfg)
     log(f"[quality] phase 8 in {time.time() - t8:.1f} s")
 
+    # 9. training as users run it: the procedural corpus, export, the
+    # profiler hook, two ranks, the scaling ladder; phase 8's oracle
+    t9 = time.time()
+    proc_summary, proc_counts = procedural_training(cfg, clip, cuda_gru)
+    profile_row = profiled_training(train_cfg)
+    dp_report, dp_counts = data_parallel_step(train_cfg)
+    ladder = scaling_ladder(cfg)
+    if "oracle" not in quality["runs"]["float32"]:
+        raise AssertionError("the quality result has no oracle report")
+    log(f"[quality] oracle, all files: {json.dumps(quality['runs']['float32']['oracle']['all'])}")
+    log(f"[train-users] phase 9 in {time.time() - t9:.1f} s")
+
     kernel = {
         "name": "gru_fwd",
         "route": "cuda",
@@ -1475,6 +1786,9 @@ def main() -> int:
             "launches": train_counts[name],
             # the bf16 training path (phase 7): the same kernels at bf16 edges
             "bf16_train_launches": bf16_counts[name],
+            # phase 9: the procedural bf16 run (3 steps), each rank of the 2-rank step
+            "procedural_train_launches": proc_counts[name],
+            "data_parallel_launches_per_rank": [c[name] for c in dp_counts],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             # dWh and dbh are sums over 257k row-steps, entries up to ~1e3:
             # their tolerance is relative (DW_RTOL)
@@ -1507,7 +1821,9 @@ def main() -> int:
             entry["ragged_shapes"] = ragged_bwd
         kernels.append(entry)
     log(json.dumps({"train_bf16": {k: v for k, v in bf16_summary.items() if k != "profile"},
-                    "quality": {k: v for k, v in quality.items() if k != "runs"}}))
+                    "quality": {k: v for k, v in quality.items() if k != "runs"},
+                    "train_users": {"procedural": proc_summary, "profile": profile_row,
+                                    "data_parallel": dp_report, "scaling": ladder}}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

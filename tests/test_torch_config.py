@@ -68,7 +68,10 @@ def test_importing_the_port_loads_no_jax():
         "tinyrecurrentunet_torch.infer.streaming, tinyrecurrentunet_torch.infer.multistream, "
         "tinyrecurrentunet_torch.infer.stream, tinyrecurrentunet_torch.infer.soak, "
         "tinyrecurrentunet_torch.runtime, tinyrecurrentunet_torch.infer.quality, "
-        "tinyrecurrentunet_torch.export.quantize, tinyrecurrentunet_torch.data.procgen; "
+        "tinyrecurrentunet_torch.export.quantize, tinyrecurrentunet_torch.data.procgen, "
+        "tinyrecurrentunet_torch.data, tinyrecurrentunet_torch.infer.oracle, tinyrecurrentunet_torch.parallel, "
+        "tinyrecurrentunet_torch.utils.params, tinyrecurrentunet_torch.utils.profiling, "
+        "tinyrecurrentunet_torch.train.export_pretrained, tinyrecurrentunet_torch.train.scaling; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tinyrecurrentunet_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

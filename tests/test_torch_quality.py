@@ -12,8 +12,9 @@ Tolerances (measured on the CPU):
 - `run_quality_eval` on 2 files of 1 s, port against JAX, each metric of
   the enhanced set: 1e-3 relative, and SI-SDR 1e-3 dB (the waveforms are
   ~1e-5 apart, tests/test_torch_denoise.py; measured at most 3.9e-6
-  relative, on WSS, and 4.6e-6 dB); the noisy baseline equal, and the
-  per-kind and per-band breakdowns over the same files.
+  relative, on WSS, and 4.6e-6 dB); the noisy baseline and the ideal-mask
+  oracle report equal, the same keys, and the per-kind and per-band
+  breakdowns over the same files.
 """
 
 import dataclasses
@@ -149,6 +150,8 @@ def test_run_quality_eval_matches_jax(testsets, tmp_path):
     want = jquality.run_quality_eval(jcfg, jquality.denoiser_from_pretrained(jcfg, ARTIFACT),
                                      enhanced_dir=str(tmp_path / "jax"), **kwargs)
     assert got["testset"] == want["testset"]
+    assert got.keys() == want.keys() >= {"oracle", "improvement"}
+    assert got["oracle"] == want["oracle"]  # numpy on the same files: equal
     assert got["enhanced"].keys() == want["enhanced"].keys() >= {"si_sdr", "stoi", "pesq_wb_est", "wss"}
     for name, value in got["enhanced"].items():
         if name == "si_sdr":

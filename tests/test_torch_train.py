@@ -515,21 +515,6 @@ def test_cli_cuda_request_without_a_card_raises(tmp_path):
         tloop.main(["-c", path, "--synthetic", "--max_iters", "1", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--procedural"], "later slice"),
-    (["--data_parallel"], "later slice"),
-    (["--profile", "p"], "later slice"),
-])
-def test_cli_options_of_later_slices_raise(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tloop.main(["-c", _cli_config(tmp_path), "--synthetic", *argv])
-
-
-def test_train_without_a_dataset_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tloop.train(_config(tconfig, tmp_path), None, device="cpu")
-
-
 def test_bf16_train_writes_float32_weights_the_jax_denoiser_loads(tmp_path, jsonl_metrics):
     """train() of a config asking for bf16 training (train_compute_dtype, as
     every shipped training config does): the model computes in bf16 on

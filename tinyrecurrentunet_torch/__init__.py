@@ -18,7 +18,12 @@ nothing of the JAX package. Public functions keep the JAX package's layouts: spe
   (`stream.py`) and the wall-clock soak (`soak.py`).
 - `runtime/`: ctypes bindings of the C++ stream host under `cpp/`, built at
   first use into `build/trunet_host/`.
-- `data/`, `losses/`, `train/`: datasets, losses and float32 training.
+- `data/`, `losses/`, `train/`: datasets (the corpus on disk, synthetic,
+  procedural), losses, training in float32 or bf16, `export_pretrained`
+  and the batch-scaling study.
+- `parallel/`: data parallelism over processes with the JAX mesh step's
+  global-batch semantics.
+- `utils/`: metrics logging, parameter accounting, profiling hooks.
 
 Entry points run on `cuda` unless the caller asks for `cpu`; asked for
 `cuda` without a card they raise.

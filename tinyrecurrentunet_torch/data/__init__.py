@@ -1,2 +1,6 @@
-"""Data of the port: WAV I/O, noise augmentation, the DNS-style pair dataset, the
-synthetic dataset and the batching loader."""
+"""Data of the port: WAV I/O, noise augmentation, the DNS-style pair dataset,
+the synthetic and procedural datasets and the batching loader."""
+
+from tinyrecurrentunet_torch.data.dataset import CleanNoisyPairDataset, SyntheticPairDataset  # noqa: F401
+from tinyrecurrentunet_torch.data.loader import DataLoader  # noqa: F401
+from tinyrecurrentunet_torch.data.procgen import ProceduralSpeechDataset  # noqa: F401

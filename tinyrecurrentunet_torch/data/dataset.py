@@ -8,8 +8,7 @@
 - `SyntheticPairDataset`: tones + filtered noise, deterministic per
   (seed, index), so training runs without a corpus on disk.
 
-The procedural dataset (`ProceduralSpeechDataset`) is a later slice of the
-port.
+The procedural dataset is `data/procgen.py ProceduralSpeechDataset`.
 """
 
 from __future__ import annotations

@@ -8,10 +8,8 @@ WSS and the PESQ estimate against clean with `evaluate_dns` (on the host),
 and reports them beside the unprocessed noisy baseline, per noise kind and
 per SNR band. The serving dtype is the config's `network.compute_dtype`:
 set it to "bfloat16" to score bf16 serving. `--int8` also scores the int8
-weight pack on the same testset.
-
-The JAX package's result also carries the ideal-mask oracle ceilings
-(`infer/oracle.py`); the port does not compute them yet (ROADMAP).
+weight pack on the same testset. The result also carries the ideal-mask
+oracle ceilings per noise kind (`infer/oracle.py`), as the JAX package's does.
 
 Usage:
     python -m tinyrecurrentunet_torch.infer.quality -c config/proc16k.json \
@@ -43,6 +41,7 @@ from tinyrecurrentunet_torch.export.quantize import (
 from tinyrecurrentunet_torch.infer.denoise import Denoiser
 from tinyrecurrentunet_torch.infer.evaluate import evaluate_dns
 from tinyrecurrentunet_torch.infer.metrics import si_sdr, stoi
+from tinyrecurrentunet_torch.infer.oracle import oracle_report
 from tinyrecurrentunet_torch.infer.perceptual import fwsegsnr
 from tinyrecurrentunet_torch.infer.pesq_est import pesq_estimate
 from tinyrecurrentunet_torch.models import TRUNet
@@ -221,6 +220,10 @@ def run_quality_eval(
         "per_noise_kind": per_kind,
         "per_snr_bucket": per_bucket,
     }
+    # the ideal-mask ceilings per condition: the denominator the per-kind
+    # gains are read against (the reverb row's magnitude-mask oracle is ~+3.4
+    # dB on this testset, the additive rows' ~+7..10 dB)
+    result["oracle"] = oracle_report(testset_dir, n_fft=cfg.featurizer.n_fft, hop=cfg.featurizer.hop_length)
     result["improvement"] = {
         k: result["enhanced"][k] - result["noisy_baseline"][k]
         for k in result["enhanced"] if k in result["noisy_baseline"]

@@ -11,7 +11,10 @@ BatchNorm follows flax (eps 1e-5, momentum 0.99), in flax's order
 (x - mean) * (rsqrt(var + eps) * scale) + bias. In eval mode it reads the
 running statistics. In training mode (`Module.train()`) it normalises by the
 batch mean and the biased batch variance E[x^2] - E[x]^2, clipped at 0, and
-updates the running statistics as ra = 0.99 ra + 0.01 batch.
+updates the running statistics as ra = 0.99 ra + 0.01 batch. Under data
+parallelism (a process group of several ranks, `parallel/mesh.py`) the batch
+is the global one: the ranks all-reduce Σx, Σx² and the count, as flax's
+BatchNorm reduces over a batch sharded across a mesh.
 
 `dtype` (None or torch.bfloat16) is flax's compute dtype. Parameters and
 running statistics stay float32 whatever it is, and are cast at use. None
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.ops import conv as conv_ops
 from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.ops.gru import gru_layer
@@ -111,8 +115,13 @@ class BatchNorm(nn.Module):
             x = x.float()  # statistics and affine in float32
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            if parallel.world_size() > 1:
+                count = x.new_tensor([x.numel() // x.shape[-1]])
+                sums = parallel.all_reduce_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
+                mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
+            else:
+                mean, mean_sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

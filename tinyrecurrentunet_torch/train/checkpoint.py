@@ -4,7 +4,8 @@
   a `torch.save` of the model's state_dict, the optimizer's, the update count,
   the iteration and the training seconds; restored by the `max` (latest) or
   an integer selector. This is the port's own format: Orbax checkpoints stay
-  with the JAX package.
+  with the JAX package. Under data parallelism rank 0 writes, the other
+  ranks wait for it at a barrier, and every rank restores from the file.
 - `save_pretrained_params`: the standalone `pretrained.npz` (params, BN
   running statistics, decode-critical settings under `meta/`) in the JAX
   package's key layout, which both packages load.
@@ -18,6 +19,7 @@ import re
 import numpy as np
 import torch
 
+from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.train.state import TrainState
 from tinyrecurrentunet_torch.weights import variables_from_state_dict
 
@@ -44,17 +46,20 @@ class CheckpointManager:
         return sorted(int(m.group(1)) for m in names if m)
 
     def save(self, step: int, state: TrainState, training_time_seconds: int = 0):
-        payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "updates": state.step,
-            "iter": step,
-            "training_time_seconds": training_time_seconds,
-        }
-        os.makedirs(self.directory, exist_ok=True)
-        tmp = self._path(step) + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
+        """Called by every rank: rank 0 writes, the others wait until it has."""
+        if parallel.rank() == 0:
+            payload = {
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "updates": state.step,
+                "iter": step,
+                "training_time_seconds": training_time_seconds,
+            }
+            os.makedirs(self.directory, exist_ok=True)
+            tmp = self._path(step) + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self._path(step))
+        parallel.barrier()
 
     def resolve_step(self, selector: str | int) -> int:
         """'max' -> latest step (-1 if none); int/int-string -> that step."""

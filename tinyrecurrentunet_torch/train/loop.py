@@ -1,15 +1,30 @@
 """The training loop and its CLI, counterpart of `tinyrecurrentunet_tpu/train/loop.py`.
 
-config -> dataset -> model and optimizer (`create_train_state`) -> resume
-from a checkpoint (`log.ckpt_iter`) -> train steps -> log every
-`iters_per_valid`, checkpoint every `iters_per_ckpt` and at the end.
+config -> process group (`parallel.initialize_distributed`) -> dataset ->
+model and optimizer (`create_train_state`) -> resume from a checkpoint
+(`log.ckpt_iter`) -> train steps -> log every `iters_per_valid`, checkpoint
+every `iters_per_ckpt` and at the end.
 
-- A `device_cacheable` dataset (the synthetic one) is uploaded to the device
-  once and each batch is gathered there, in the order of the per-epoch
+- The dataset defaults to the corpus on disk, `CleanNoisyPairDataset(
+  cfg.trainset, subset="training")`; the CLI also trains on the synthetic
+  set (`--synthetic`) and on the procedural speech corpus (`--procedural`,
+  how the shipped flagship was trained), each with a held-out validation set.
+- A `device_cacheable` dataset (synthetic, procedural) in a single process
+  is uploaded to the device once (`upload_corpus`; the procedural corpus is
+  synthesized first, ~20 ms an item on the host, and the loop logs that
+  time) and each batch is gathered there, in the order of the per-epoch
   permutation default_rng((seed, epoch)), as the JAX loop does: both see the
-  same batches in the same order. Other datasets go through `DataLoader`.
+  same batches in the same order. Other datasets, and every dataset under
+  data parallelism, go through `DataLoader`.
+- Data parallelism (`data_parallel`, `--data_parallel`): one process per
+  card, started by torchrun (`python -m torch.distributed.run`) or, one per
+  host, from `cfg.dist`. Rank r reads the shard `num_shards=W,
+  shard_index=r` at `batch_size_per_device` items, and the step is the
+  global batch's (`train/step.py`, `parallel/mesh.py`). Rank 0 alone
+  prints, logs, evaluates the whole validation batch and writes checkpoints.
 - TBPTT (`tbptt_segment_sec` > 0): each batch is cut into segments, one
   update each, with the TGRU carry passed across them.
+- `profile_dir`: a torch.profiler trace of steps 10-12 (`utils.profiling.trace`).
 
 Runs on `cuda` unless asked for `cpu`. On the card every GRU recurrence of
 a step goes through the CUDA kernels (3 forward and 3 backward launches).
@@ -19,37 +34,48 @@ the validation loss too, as in the JAX loop; parameters, optimizer state and
 checkpoints stay float32.
 
 Usage:
-    python -m tinyrecurrentunet_torch.train.loop -c config/synthetic16k.json \
-        --synthetic [--max_iters N] [--device cpu]
-
-The procedural and corpus datasets, data parallelism and the profiler hook
-are later slices: `--procedural`, `--data_parallel` and `--profile` raise
-NotImplementedError.
+    python -m tinyrecurrentunet_torch.train.loop -c config/proc16k.json \
+        [--procedural [--procedural_items N] | --synthetic] [--max_iters N] \
+        [--profile DIR] [--device cpu]
+    python -m torch.distributed.run --nproc_per_node 4 -m tinyrecurrentunet_torch.train.loop \
+        -c config/proc16k.json --procedural --data_parallel
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
+from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.config import Config, load_config
-from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset
-from tinyrecurrentunet_torch.data.loader import DataLoader
+from tinyrecurrentunet_torch.data import CleanNoisyPairDataset, DataLoader, ProceduralSpeechDataset, SyntheticPairDataset
 from tinyrecurrentunet_torch.infer.denoise import resolve_device
 from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
 from tinyrecurrentunet_torch.train.state import create_train_state
 from tinyrecurrentunet_torch.train.step import current_learning_rate, make_eval_step, make_train_step
 from tinyrecurrentunet_torch.utils.metrics import MetricsWriter
+from tinyrecurrentunet_torch.utils.params import print_size
+from tinyrecurrentunet_torch.utils.profiling import trace
 
-_LATER = "a later slice of the port (ROADMAP)"
+PROFILE_STEPS = (10, 12)  # first and last step of the --profile trace
 
 
 def epoch_permutation(seed: int, epoch: int, num_items: int) -> np.ndarray:
     """The order of the on-device corpus in one epoch."""
     return np.random.default_rng((seed, epoch)).permutation(num_items)
+
+
+def upload_corpus(dataset, seed: int, device) -> list[torch.Tensor]:
+    """Every item of `dataset` on `device`: [clean (N, L), noisy (N, L)],
+    item i from dataset.get(i, rng) with one rng default_rng(seed) drawn in
+    index order, as the JAX loop builds its device corpus."""
+    rng = np.random.default_rng(seed)
+    items = [dataset.get(i, rng) for i in range(len(dataset))]
+    return [torch.from_numpy(np.stack([x[k] for x in items])).to(device) for k in (0, 1)]
 
 
 def train(
@@ -59,28 +85,45 @@ def train(
     log_dir: str | None = None,
     valid_dataset=None,
     device: str | torch.device = "cuda",
+    data_parallel: bool = False,
+    backend: str | None = None,
+    profile_dir: str | None = None,
 ):
     """Run training; returns (state, metrics of the last logged step as floats).
 
-    dataset: an object with __len__ and get(i, rng) -> (clean, noisy, id).
+    dataset: an object with __len__ and get(i, rng) -> (clean, noisy, id);
+      default CleanNoisyPairDataset(cfg.trainset, subset="training").
     max_iters: stop early (default cfg.train.optimization.n_iters).
+    data_parallel: train over the ranks of the process group that torchrun's
+      environment or cfg.dist asks for; several ranks without it raise.
+    backend: the process group's, default nccl on a card, gloo on the CPU.
+    device: `cuda` is cuda:LOCAL_RANK under torchrun; an explicit index is
+      honoured (two ranks on one card need backend gloo).
     """
-    if dataset is None:
-        raise NotImplementedError(f"the corpus dataset (CleanNoisyPairDataset) is {_LATER}")
-    device = resolve_device(device)
+    device = resolve_device(parallel.local_device(device))
+    if device.index is not None:
+        torch.cuda.set_device(device)
+    world = parallel.initialize_distributed(cfg.dist, backend or parallel.default_backend(device))
+    if world > 1 and not data_parallel:
+        raise ValueError(f"{world} processes train one model only with data_parallel (--data_parallel)")
+    lead = parallel.rank() == 0
     opt = cfg.train.optimization
     log = cfg.train.log
     n_iters = min(opt.n_iters, max_iters or opt.n_iters)
-    batch_size = opt.batch_size_per_device
+    batch_size = opt.batch_size_per_device  # per rank; the global batch is W times it
+
+    if dataset is None:
+        dataset = CleanNoisyPairDataset(cfg.trainset, subset="training")
 
     state = create_train_state(cfg, device=device)
-    n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"TRUNet Parameters: {n_params / 1e6:.6f}M", flush=True)
+    if lead:
+        print_size(state.model, "TRUNet")
 
     ckpt = CheckpointManager(log.directory, cfg.train.exp_path)
     state, resume_iter, prev_seconds = ckpt.restore(state, log.ckpt_iter)
-    if resume_iter >= 0:
+    if resume_iter >= 0 and lead:
         print(f"resumed from checkpoint at iteration {resume_iter}")
+    parallel.broadcast_state_(state.model)
     n_iter = resume_iter + 1
 
     seg_len = 0
@@ -89,25 +132,30 @@ def train(
         seg_len = max(int(opt.tbptt_segment_sec * cfg.trainset.sample_rate) // hop, 1) * hop
     step_fn = make_train_step(cfg, with_carry=seg_len > 0)
 
+    # rank 0 evaluates the validation batch of the global batch's size, cut
+    # to a multiple of the ranks as the JAX loop cuts it for its mesh
     eval_fn = valid_batch = None
-    if valid_dataset is not None:
+    if valid_dataset is not None and lead:
         eval_fn = make_eval_step(cfg)
         vrng = np.random.default_rng(1234)
-        items = [valid_dataset.get(i, vrng) for i in range(min(len(valid_dataset), batch_size))]
+        n_items = min(len(valid_dataset), batch_size * world)
+        n_items = max(n_items - n_items % world, world)
+        items = [valid_dataset.get(i, vrng) for i in range(n_items)]
         vlen = min(len(c) for c, _, _ in items)
         valid_batch = [
             torch.from_numpy(np.stack([x[k][:vlen] for x in items]).astype(np.float32)).to(device)
             for k in (0, 1)
         ]
 
-    if getattr(dataset, "device_cacheable", False):
-        rng = np.random.default_rng(opt.seed)
-        items = [dataset.get(i, rng) for i in range(len(dataset))]
-        corpus = [torch.from_numpy(np.stack([x[k] for x in items])).to(device) for k in (0, 1)]
-        del items
+    if getattr(dataset, "device_cacheable", False) and world == 1:
+        t0 = time.perf_counter()
+        corpus = upload_corpus(dataset, opt.seed, device)
+        print(f"device corpus: {len(dataset)} items made and uploaded in {time.perf_counter() - t0:.1f} s, "
+              f"{2 * corpus[0].numel() * corpus[0].element_size() / 1e9:.2f} GB on {device}", flush=True)
         loader = None
     else:
-        loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=opt.seed)
+        loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=opt.seed,
+                            **parallel.loader_shard())
 
     def epoch_batches(epoch: int):
         if loader is None:
@@ -120,7 +168,8 @@ def train(
                 yield (torch.from_numpy(clean.astype(np.float32)).to(device),
                        torch.from_numpy(noisy.astype(np.float32)).to(device))
 
-    writer = MetricsWriter(log_dir or f"{log.directory}/{cfg.train.exp_path}/logs")
+    writer = MetricsWriter(log_dir or f"{log.directory}/{cfg.train.exp_path}/logs") if lead else None
+    profiling = contextlib.ExitStack()
     time0 = time.time() - prev_seconds
     metrics = {}
     epoch = 0
@@ -128,6 +177,8 @@ def train(
         for clean, noisy in epoch_batches(epoch):
             if n_iter >= n_iters:
                 break
+            if profile_dir is not None and n_iter == PROFILE_STEPS[0]:
+                profiling.enter_context(trace(profile_dir))
             if seg_len > 0:
                 tgru_h = state.model.init_tgru_state(clean.shape[0], cfg.featurizer.num_freqs, device)
                 for s in range(clean.shape[-1] // seg_len):
@@ -135,40 +186,50 @@ def train(
                     state, metrics, tgru_h = step_fn(state, clean[:, sl], noisy[:, sl], tgru_h)
             else:
                 state, metrics = step_fn(state, clean, noisy)
+            if profile_dir is not None and n_iter == PROFILE_STEPS[1]:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                profiling.close()
+                if lead:
+                    print(f"profiler trace written to {profile_dir}", flush=True)
 
             if n_iter % log.iters_per_valid == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
-                lr = current_learning_rate(cfg, n_iter)
-                valid_msg = ""
-                if eval_fn is not None:
-                    metrics["valid_loss"] = float(eval_fn(state, *valid_batch)["loss"])
-                    valid_msg = f" \tvalid: {metrics['valid_loss']:.7f}"
-                print(
-                    f"iteration: {n_iter} \tloss: {metrics['loss']:.7f} "
-                    f"\tgrad_norm: {metrics['grad_norm']:.4f} \tlr: {lr:.3e}" + valid_msg,
-                    flush=True,
-                )
-                scalars = {
-                    "Train/Train-Loss": metrics["loss"],
-                    "Train/Train-Reduced-Loss": metrics["loss"],
-                    "Train/Gradient-Norm": metrics["grad_norm"],
-                    "Train/learning-rate": lr,
-                    **{f"Train/loss-{k}": v for k, v in metrics.items()
-                       if k not in ("loss", "grad_norm", "valid_loss")},
-                }
-                if "valid_loss" in metrics:
-                    scalars["Valid/Valid-Loss"] = metrics["valid_loss"]
-                writer.scalars(n_iter, scalars)
+                if lead:
+                    lr = current_learning_rate(cfg, n_iter)
+                    valid_msg = ""
+                    if eval_fn is not None:
+                        metrics["valid_loss"] = float(eval_fn(state, *valid_batch)["loss"])
+                        valid_msg = f" \tvalid: {metrics['valid_loss']:.7f}"
+                    print(
+                        f"iteration: {n_iter} \tloss: {metrics['loss']:.7f} "
+                        f"\tgrad_norm: {metrics['grad_norm']:.4f} \tlr: {lr:.3e}" + valid_msg,
+                        flush=True,
+                    )
+                    scalars = {
+                        "Train/Train-Loss": metrics["loss"],
+                        "Train/Train-Reduced-Loss": metrics["loss"],
+                        "Train/Gradient-Norm": metrics["grad_norm"],
+                        "Train/learning-rate": lr,
+                        **{f"Train/loss-{k}": v for k, v in metrics.items()
+                           if k not in ("loss", "grad_norm", "valid_loss")},
+                    }
+                    if "valid_loss" in metrics:
+                        scalars["Valid/Valid-Loss"] = metrics["valid_loss"]
+                    writer.scalars(n_iter, scalars)
 
             if n_iter > 0 and n_iter % log.iters_per_ckpt == 0:
                 ckpt.save(n_iter, state, int(time.time() - time0))
-                print(f"model at iteration {n_iter} is saved")
+                if lead:
+                    print(f"model at iteration {n_iter} is saved")
             n_iter += 1
         epoch += 1
+    profiling.close()
 
     if metrics:
         ckpt.save(min(n_iter - 1, n_iters), state, int(time.time() - time0))
-    writer.close()
+    if writer is not None:
+        writer.close()
     metrics = {k: float(v) for k, v in metrics.items()}
     return state, metrics
 
@@ -180,18 +241,44 @@ def main(argv=None):
     parser.add_argument("--synthetic", action="store_true", help="train on the synthetic dataset")
     parser.add_argument("--synthetic_items", type=int, default=256,
                         help="size of the synthetic training set")
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--procedural", action="store_true", help=f"{_LATER}")
-    parser.add_argument("--data_parallel", action="store_true", help=f"{_LATER}")
-    parser.add_argument("--profile", default=None, metavar="DIR", help=f"{_LATER}")
+    parser.add_argument("--procedural", action="store_true",
+                        help="train on the procedural speech+noise corpus (~20 ms of host synthesis an item)")
+    parser.add_argument("--procedural_items", type=int, default=4000,
+                        help="size of the procedural training corpus")
+    parser.add_argument("--babble_style", default="diverse", choices=("diverse", "eval"),
+                        help="training babble crowd: the diversified generator or the testset's recipe")
+    parser.add_argument("--kinds", default=None,
+                        help="comma-separated degradation kinds overriding the training schedule "
+                        "(e.g. 'reverb' for the dereverb-only diagnostic)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="train over the processes torchrun (or cfg.dist) starts, one per card")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="process group backend (default nccl on a card, gloo on the CPU; "
+                        "two ranks on one card need gloo)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="capture a torch.profiler trace of train steps 10-12 into DIR")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:<index> or cpu")
     args = parser.parse_args(argv)
-    for flag in ("procedural", "data_parallel", "profile"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is {_LATER}")
 
     cfg = load_config(args.config)
     dataset = valid_dataset = None
-    if args.synthetic:
+    if args.procedural:
+        kinds = tuple(args.kinds.split(",")) if args.kinds else None
+        dataset = ProceduralSpeechDataset(
+            num_items=args.procedural_items,
+            length_sec=cfg.trainset.crop_length_sec,
+            sample_rate=cfg.trainset.sample_rate,
+            babble_style=args.babble_style,
+            kind_schedule=kinds,
+        )
+        valid_dataset = ProceduralSpeechDataset(
+            num_items=32,
+            length_sec=cfg.trainset.crop_length_sec,
+            sample_rate=cfg.trainset.sample_rate,
+            seed=6_000_000,
+        )
+    elif args.synthetic:
         dataset = SyntheticPairDataset(
             num_items=args.synthetic_items,
             length_sec=cfg.trainset.crop_length_sec,
@@ -204,7 +291,8 @@ def main(argv=None):
             seed=999,
         )
     return train(cfg, dataset=dataset, max_iters=args.max_iters, valid_dataset=valid_dataset,
-                 device=args.device)
+                 device=args.device, data_parallel=args.data_parallel, backend=args.backend,
+                 profile_dir=args.profile)
 
 
 if __name__ == "__main__":

@@ -13,12 +13,20 @@ TGRU carry through and returns it detached, so gradients stop at segment
 boundaries. Unlike the JAX step the model is not an argument: the state
 holds it. metrics are 0-dim tensors on the device (the loss terms and
 "grad_norm"), read by the caller only when it logs.
+
+Under data parallelism (a process group of several ranks, `parallel/mesh.py`)
+each rank passes its shard of the global batch, and the step is the global
+batch's, as the JAX step over a mesh: the loss and its terms are the global
+batch's on every rank, the gradients are summed across ranks, then the
+global norm, the clip and AdamW run on every rank alike, so the replicas
+stay bit-equal.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.config import Config
 from tinyrecurrentunet_torch.losses import loss_fn
 from tinyrecurrentunet_torch.signal import Featurizer
@@ -52,10 +60,12 @@ def make_train_step(cfg: Config, with_carry: bool = False, featurizer=None):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, loss_dict, tgru_h = loss_fn(
-            model, clean, noisy, featurizer, cfg.network, loss_cfg, tgru_h0=tgru_h0
+            model, clean, noisy, featurizer, cfg.network, loss_cfg, tgru_h0=tgru_h0,
+            across_ranks=parallel.world_size() > 1,
         )
         loss.backward()
         grads = [p.grad for p in model.parameters()]
+        parallel.sum_gradients_(grads)
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = global_norm(grads)
         clip_by_global_norm_(grads, max_norm, metrics["grad_norm"])
