@@ -77,7 +77,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    model (3 gru_fwd; cuDNN's deterministic algorithms), the npz holding the
    model's parameters and statistics bit for bit; (e) `train/scaling.py` in bf16 at batch 32, 64 and 128
    (step ms, audio-s per s, peak memory, MFU beside the card's name and
-   power limit); (f) phase 8's oracle report.
+   power limit); (f) phase 8's oracle report;
+10. export and the tools beside it: (a) `export_onnx`, `export_torchscript`
+   and `export_program` of the flagship on the host (sizes, parity with the
+   port's model, torch's version), the TorchScript artifact loaded onto the
+   card and held against the port's model with its kernels at the 251-frame
+   export shape (3 gru_fwd), and that model against its plain version
+   (`use_pallas_gru` "never", no launch) there; (b) the port's int8 pack of pretrained.npz
+   byte-equal to the committed model_int8.trq; (c) `export/rt_bench.py`'s
+   four engines (seconds and RTF; 3 gru_fwd a call of the full clip and of a
+   frame, none in the TorchScript artifact); (d) `ops/gru_bench.py`'s five
+   rows (plain version against gru_fwd, times and the largest difference of
+   their outputs); (e) the kernel A/B of `train/scaling.py` at batch 64 in
+   float32, "never" launching none of the five kernels and "always" 3 of
+   each training kernel a step.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -106,7 +119,7 @@ PEAK_BF16_FLOPS = 989e12
 
 # Kernel vs plain version, both float32 on the card: dot products of length
 # H summed in another order (~H * 2^-24 relative per step), carried through
-# up to ~500 steps of a contracting recurrence.
+# up to ~750 steps of a contracting recurrence.
 KERNEL_ATOL = 1e-4
 # Denoiser on the card vs on the CPU: cuFFT and the CPU FFT differ in the
 # last bit, which moves the float32 rounding of the ~1e3 rad unwrapped phase
@@ -245,6 +258,12 @@ QUALITY_SEED = 7_000_000
 QUALITY_F32_SI_SDR = 12.578
 QUALITY_INT8_GAP = 0.019
 QUALITY_SI_SDR_ATOL = 0.05
+# Export (phase 10): the export module (torch.nn.GRU) against the port's
+# model, on the host and, as the TorchScript artifact, on the card against
+# the model with its kernels, at the 251-frame export shape: the same
+# float32 math in another order, the JAX package's export tolerance (the CPU
+# port measured 7.2e-7 with the flagship's weights).
+EXPORT_ATOL = 1e-4
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1552,6 +1571,135 @@ def scaling_ladder(cfg) -> list:
     return rows
 
 
+def export_and_benches(cfg, cuda_gru) -> tuple[dict, dict]:
+    """Phase 10: (a) the export of the flagship on the host (ONNX,
+    TorchScript, the two programs), the TorchScript artifact on the card
+    against the port's model with its kernels at the 251-frame export shape,
+    and that model against its plain version there; (b) the int8 pack, byte for byte the committed one; (c) `rt_bench`'s four
+    engines, 3 gru_fwd a call of the full clip and of a frame; (d)
+    `gru_bench`'s five rows, each kernel output held against the plain
+    version's; (e) the kernel A/B at batch 64 in float32:
+    "never" launches none of the five kernels, "always" 3 of each training
+    kernel a step. Returns (summary, launches of each kernel by part)."""
+    import filecmp
+
+    from tinyrecurrentunet_torch.export import export as export_mod
+    from tinyrecurrentunet_torch.export import onnx_export, quantize, rt_bench
+    from tinyrecurrentunet_torch.ops import gru_bench
+    from tinyrecurrentunet_torch.signal.features import from_reference_layout
+    from tinyrecurrentunet_torch.train.scaling import kernel_ab_rows
+    from tinyrecurrentunet_torch.weights import artifact_meta, load_pretrained, read_npz
+
+    workdir = phase_workdir("chip_smoke_export")
+    state_dict = load_pretrained(ARTIFACT, cfg)
+    card = nvidia_smi_line()
+    summary = {"torch": torch.__version__, "nvidia_smi": card}
+    launches = {}
+
+    # (a) export on the host; the TorchScript artifact on the card
+    t0 = time.perf_counter()
+    onnx_report = onnx_export.export_onnx(cfg, state_dict, os.path.join(workdir, "trunet.onnx"))
+    ts_report = onnx_export.export_torchscript(cfg, state_dict, os.path.join(workdir, "trunet.ts.pt"))
+    programs = export_mod.export_program(cfg, state_dict, workdir)
+    summary["export_s"] = time.perf_counter() - t0
+    summary["sizes_bytes"] = {name: os.path.getsize(path) for name, path in
+                              [("onnx", onnx_report["path"]), ("torchscript", ts_report["path"]), *programs.items()]}
+    summary["host_parity"] = {"onnx": onnx_report["max_abs_err"], "torchscript": ts_report["max_abs_err"]}
+    log(f"[export] torch {torch.__version__}: sizes {summary['sizes_bytes']}, module vs the port's model on the "
+        f"host (max abs) {summary['host_parity']}, {summary['export_s']:.1f} s")
+    if min(summary["sizes_bytes"].values()) < 1_000_000 or max(summary["host_parity"].values()) > EXPORT_ATOL:
+        raise AssertionError(f"export: {summary}")
+    feats_tcf = torch.from_numpy(onnx_export.export_features(cfg)).cuda()
+    artifact = torch.jit.load(ts_report["path"], map_location="cuda").eval()
+    model = onnx_export.float32_model(cfg, state_dict, "cuda")
+    cuda_gru.reset_launch_counts()
+    with torch.no_grad():
+        ref, _ = model(from_reference_layout(feats_tcf))
+    torch.cuda.synchronize()
+    launches["export_eager"] = cuda_gru.launch_counts()
+    with torch.no_grad():
+        got = artifact(feats_tcf)
+    err = float((got - ref.transpose(-1, -2)).abs().max())
+    summary["torchscript_on_card_vs_kernels_max_abs"] = err
+    log(f"[export] TorchScript artifact on the card (cuDNN GRU) vs the port's model with its kernels, "
+        f"{feats_tcf.shape[0]} frames: max abs {err:.3e} (tolerance {EXPORT_ATOL:.0e}); "
+        f"the model's launches {launches['export_eager']}")
+    if err > EXPORT_ATOL or launches["export_eager"] != {**{k: 0 for k in launches["export_eager"]}, "gru_fwd": 3}:
+        raise AssertionError(f"TorchScript artifact on the card: {err}, {launches['export_eager']}")
+    # the same model with the plain recurrences, at the shapes rt_bench's
+    # full-clip engines give gru_fwd
+    never = dataclasses.replace(cfg, network=dataclasses.replace(cfg.network, use_pallas_gru="never"))
+    plain = onnx_export.float32_model(never, state_dict, "cuda")
+    cuda_gru.reset_launch_counts()
+    with torch.no_grad():
+        plain_out, _ = plain(from_reference_layout(feats_tcf))
+    torch.cuda.synchronize()
+    plain_counts = cuda_gru.launch_counts()
+    err = float((ref - plain_out).abs().max())
+    summary["kernels_vs_plain_max_abs"] = err
+    log(f"[export] the port's model with its kernels vs with the plain recurrences, {feats_tcf.shape[0]} frames: "
+        f"max abs {err:.3e} (tolerance {EXPORT_ATOL:.0e}); the plain model's launches {plain_counts}")
+    if err > EXPORT_ATOL or any(plain_counts.values()):
+        raise AssertionError(f"kernels vs plain at the export shape: {err}, {plain_counts}")
+
+    # (b) the int8 pack
+    variables, _ = read_npz(os.path.join(ARTIFACT, "pretrained.npz"))
+    pack = os.path.join(workdir, "model_int8.trq")
+    size = quantize.save_quantized(pack, variables["params"], variables["batch_stats"], meta=artifact_meta(cfg))
+    same = filecmp.cmp(pack, os.path.join(ARTIFACT, "model_int8.trq"), shallow=False)
+    summary["int8_pack"] = {"bytes": size, "equals_committed": same}
+    log(f"[export] int8 pack {size} bytes, byte-equal to the committed model_int8.trq: {same}")
+    if not same:
+        raise AssertionError("the port's int8 pack differs from artifacts/TRUNet-proc/model_int8.trq")
+
+    # (c) rt_bench
+    cuda_gru.reset_launch_counts()
+    bench = rt_bench.run_bench(cfg, state_dict, ts_report["path"], device="cuda", reps_hi=20, reps_lo=4,
+                               frame_reps_hi=50, frame_reps_lo=10)
+    torch.cuda.synchronize()
+    launches["rt_bench"] = cuda_gru.launch_counts()
+    bench["nvidia_smi"] = card
+    summary["rt_bench"] = bench
+    log(f"[rt_bench] {json.dumps(bench)}")
+    per_call = bench["gru_fwd_per_call"]
+    if (per_call != {"eager_full_clip": 3, "eager_per_frame": 3, "int8_full_clip": 3, "torchscript_full_clip": 0}
+            or any(v for k, v in launches["rt_bench"].items() if k != "gru_fwd")
+            or not all(np.isfinite(v) and v > 0 for k, v in bench.items() if k.endswith(("_s", "_rtf")))):
+        raise AssertionError(f"rt_bench: {bench}, launches {launches['rt_bench']}")
+
+    # (d) gru_bench
+    cuda_gru.reset_launch_counts()
+    rows = gru_bench.run(reps=50, plain_reps=3, device="cuda")
+    torch.cuda.synchronize()
+    launches["gru_bench"] = cuda_gru.launch_counts()
+    for row in rows:
+        log(f"[gru_bench] {json.dumps({**row, 'nvidia_smi': card})}")
+    if len(rows) != 5 or not all(np.isfinite(r["speedup"]) and r["speedup"] > 0 and r["max_abs_err"] <= KERNEL_ATOL
+                                 for r in rows):
+        raise AssertionError(f"gru_bench (kernel vs plain tolerance {KERNEL_ATOL:.0e}): {rows}")
+    summary["gru_bench"] = rows
+
+    # (e) the kernel A/B at batch 64, float32: train/scaling.py's "never" and
+    # "always" rows in one run. "never" launches nothing and "always" 3 of
+    # each training kernel a step (warm-up and FLOP count included), so the
+    # run's counts are 3 x the "always" row's steps.
+    cuda_gru.reset_launch_counts()
+    ab = kernel_ab_rows(cfg, [TRAIN_BATCH], reps_hi=2, reps_lo=1, device="cuda")
+    torch.cuda.synchronize()
+    counts = launches["kernel_ab"] = cuda_gru.launch_counts()
+    always = next(r for r in ab if r["use_pallas_gru"] == "always")
+    want = {**{k: 3 * always.get("steps", 0) for k in counts}, "gru_fwd": 0}
+    for row in ab:
+        row["nvidia_smi"] = card
+        log(f"[kernel-ab] {json.dumps(row)}")
+    log(f"[kernel-ab] launches of the run {counts}, want {want}")
+    if any(r.get("oom") or not np.isfinite(r["step_ms"]) for r in ab) or counts != want:
+        raise AssertionError(f"kernel A/B: {ab}, launches {counts}, want {want}")
+    summary["kernel_ab"] = {"rows": ab, "launches": counts}
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1748,6 +1896,12 @@ def main() -> int:
     log(f"[quality] oracle, all files: {json.dumps(quality['runs']['float32']['oracle']['all'])}")
     log(f"[train-users] phase 9 in {time.time() - t9:.1f} s")
 
+    # 10. export (ONNX, TorchScript, the programs, the int8 pack), the
+    # latency bench across engines, gru_bench and the kernel A/B
+    t10 = time.time()
+    export_summary, export_counts = export_and_benches(cfg, cuda_gru)
+    log(f"[export] phase 10 in {time.time() - t10:.1f} s")
+
     kernel = {
         "name": "gru_fwd",
         "route": "cuda",
@@ -1765,8 +1919,15 @@ def main() -> int:
         "streaming_launches": stream["counts"]["gru_fwd"],
         "streaming_hops": stream["hops"],
         "streaming_shapes": streaming_rows,
+        # phase 10: the eager model at the export shape (3), rt_bench's engines
+        # (3 a call of the full clip and of a frame), gru_bench's kernel calls
+        "export_launches": export_counts["export_eager"]["gru_fwd"],
+        "rt_bench_launches": export_counts["rt_bench"]["gru_fwd"],
+        "gru_bench_launches": export_counts["gru_bench"]["gru_fwd"],
+        "gru_bench_max_abs_err": max(r["max_abs_err"] for r in export_summary["gru_bench"]),
     }
-    kernel["max_abs_err"] = max(kernel["max_abs_err"], max(r["max_abs_err"] for r in streaming_rows))
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], max(r["max_abs_err"] for r in streaming_rows),
+                                kernel["gru_bench_max_abs_err"])
     kernel["max_err"] = kernel["max_abs_err"]
     kernel["kernel_ms"] = kernel["ms"]
     kernels = [kernel]
@@ -1789,6 +1950,9 @@ def main() -> int:
             # phase 9: the procedural bf16 run (3 steps), each rank of the 2-rank step
             "procedural_train_launches": proc_counts[name],
             "data_parallel_launches_per_rank": [c[name] for c in dp_counts],
+            # phase 10: the kernel A/B's run, 3 a step of its "always" row and
+            # none of its "never" row
+            "kernel_ab_launches": export_counts["kernel_ab"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             # dWh and dbh are sums over 257k row-steps, entries up to ~1e3:
             # their tolerance is relative (DW_RTOL)
@@ -1823,7 +1987,8 @@ def main() -> int:
     log(json.dumps({"train_bf16": {k: v for k, v in bf16_summary.items() if k != "profile"},
                     "quality": {k: v for k, v in quality.items() if k != "runs"},
                     "train_users": {"procedural": proc_summary, "profile": profile_row,
-                                    "data_parallel": dp_report, "scaling": ladder}}))
+                                    "data_parallel": dp_report, "scaling": ladder},
+                    "export": export_summary}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

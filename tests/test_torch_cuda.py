@@ -573,3 +573,49 @@ def test_bf16_denoise_on_card_against_float32(card):
     assert out.dtype == np.float32 and np.isfinite(out).all()
     assert snr_db(f32, out) >= 30 and snr_db(cpu, out) >= 30
     assert abs(si_sdr(out, clean) - si_sdr(f32, clean)) <= 0.1
+
+
+@pytest.mark.parametrize("value", ["never", "always", "auto"])
+def test_use_pallas_gru_routes_by_launch_counts(card, value):
+    """network.use_pallas_gru on the card: "never" launches none of the five
+    kernels in a forward and backward and in an inference call; "always" and
+    "auto" launch 3 of each training kernel and 3 gru_fwd. The outputs and
+    the gradient of the input (eval mode: BatchNorm on its running
+    statistics) agree with the CPU's to 1e-4 (relative to the largest entry
+    for the gradient)."""
+    import dataclasses
+
+    from tinyrecurrentunet_torch.config import load_config
+    from tinyrecurrentunet_torch.models import TRUNet
+    from tinyrecurrentunet_torch.models.blocks import init_parameters
+
+    cfg = load_config(os.path.join(REPO, "config", "proc16k.json"))
+    net = dataclasses.replace(cfg.network, use_pallas_gru=value)
+    model_cpu = init_parameters(TRUNet(net), torch.Generator().manual_seed(0)).eval()
+    model_card = TRUNet(net, device=card).eval()
+    model_card.load_state_dict(model_cpu.state_dict())
+    x = (np.random.default_rng(4).standard_normal((2, 20, 257, 4)) * 0.5).astype(np.float32)
+
+    def run(model, device):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        y, _ = model(xt)
+        (grad,) = torch.autograd.grad(y.square().sum(), [xt])
+        return y.detach().cpu(), grad.cpu()
+
+    cuda_gru.reset_launch_counts()
+    y, grad = run(model_card, card)
+    torch.cuda.synchronize()
+    train_counts = cuda_gru.launch_counts()
+    cuda_gru.reset_launch_counts()
+    with torch.inference_mode():
+        model_card(torch.from_numpy(x).to(card))
+    torch.cuda.synchronize()
+    infer_counts = cuda_gru.launch_counts()
+    if value == "never":
+        assert set(train_counts.values()) == set(infer_counts.values()) == {0}
+    else:
+        assert train_counts == {"gru_fwd": 0, "gru_fwd_train": 3, "gru_bwd": 3, "gru_dw_partial": 3, "gru_dw_sum": 3}
+        assert infer_counts == {**{k: 0 for k in infer_counts}, "gru_fwd": 3}
+    y_cpu, grad_cpu = run(model_cpu, "cpu")
+    assert (y - y_cpu).abs().max().item() <= ATOL
+    assert _rel(grad, grad_cpu) <= 1e-4

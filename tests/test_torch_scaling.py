@@ -43,6 +43,14 @@ def test_run_study_rows_on_the_cpu(tmp_path, monkeypatch):
     # FLOPs grow with the batch and do not depend on the dtype
     assert rows[2]["gflops_per_step"] == pytest.approx(2 * rows[0]["gflops_per_step"], rel=0.05)
     assert rows[0]["gflops_per_step"] == rows[1]["gflops_per_step"]
+    # the kernel A/B in float32 at the smallest and the largest batch that
+    # fit; no lax.scan unroll A/B
+    ab = result["train_kernel_ab"]
+    assert [(r["batch"], r["dtype"], r["use_pallas_gru"]) for r in ab] == [
+        (b, "float32", k) for b in (2, 4) for k in ("never", "always")]
+    for row in ab:
+        assert JAX_FIELDS <= row.keys() and row["step_ms"] > 0
+    assert result["train_unroll_ab"] == [] and "lax.scan" in result["train_unroll_ab_note"]
 
 
 def test_an_out_of_memory_rung_is_recorded_as_jax_records_it(monkeypatch):

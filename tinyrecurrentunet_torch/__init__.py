@@ -10,8 +10,11 @@ nothing of the JAX package. Public functions keep the JAX package's layouts: spe
 - `weights`: reads `pretrained.npz` and converts it into the model's
   `state_dict`.
 - `signal/`: STFT/iSTFT, phase unwrap, PCEN and the featurizer.
-- `ops/`: the plain PyTorch GRU, the hand-written CUDA recurrence kernel
-  (`ops/csrc/gru_fwd.cu`) and its wrapper, conv helpers, the kernel build.
+- `ops/`: the plain PyTorch GRU, the hand-written CUDA recurrence kernels
+  (`ops/csrc/gru_fwd.cu`, `ops/csrc/gru_train.cu`) and their wrappers, conv
+  helpers, the kernel build, and `gru_bench` (the plain version against the
+  kernel); `network.use_pallas_gru` "never" runs the plain version on the
+  card too.
 - `models/`: TRUNet blocks, the network and the PHM head.
 - `infer/`: the offline `Denoiser` and its CLI (`denoise.py`), the
   streaming denoisers (`streaming.py`, `multistream.py`), the stream CLI
@@ -20,7 +23,10 @@ nothing of the JAX package. Public functions keep the JAX package's layouts: spe
   first use into `build/trunet_host/`.
 - `data/`, `losses/`, `train/`: datasets (the corpus on disk, synthetic,
   procedural), losses, training in float32 or bf16, `export_pretrained`
-  and the batch-scaling study.
+  and the batch-scaling study with its kernel A/B.
+- `export/`: the int8 weight packs (write and read), the forward and
+  streaming-step programs (`torch.export`), ONNX and TorchScript artifacts,
+  and the latency bench across engines (`rt_bench`).
 - `parallel/`: data parallelism over processes with the JAX mesh step's
   global-batch semantics.
 - `utils/`: metrics logging, parameter accounting, profiling hooks.

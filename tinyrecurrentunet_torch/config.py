@@ -114,10 +114,15 @@ class NetworkConfig:
     phm_source: str = "bsigmoid"
     # Compute dtype for the forward pass ("float32" or "bfloat16").
     compute_dtype: str = "float32"
-    # Kernel selection and scan unrolling of the JAX package. Parsed so the
-    # schema stays the same; the port ignores both: on a CUDA device every
-    # recurrence goes through the CUDA kernel (ops/cuda_gru.py).
+    # The GRU recurrence's implementation (models/blocks.py GRU): "auto" and
+    # "always" run the CUDA kernels (ops/cuda_gru.py) on a CUDA tensor at
+    # every shape, where the JAX package's "auto" takes its Pallas kernels
+    # only at the shapes of its TPU policy; "never" runs the plain PyTorch
+    # versions (ops/gru.py) on any device. Any other value raises when the
+    # model is built.
     use_pallas_gru: str = "auto"
+    # `lax.scan`'s unroll factor in the JAX package. Parsed so the schema
+    # stays the same; the port has no lax.scan and ignores it.
     gru_scan_unroll: int = 1
 
     def __post_init__(self):

@@ -5,6 +5,7 @@
   augmented noise file after a random crop ("mix" mode) or load DNS-style
   clean/noisy pairs ("pairs" mode); the testing subset loads the DNS
   no-reverb synthetic pairs sorted by fileid.
+- `load_clean_noisy_dataloader`: the pair dataset and its loader in one call.
 - `SyntheticPairDataset`: tones + filtered noise, deterministic per
   (seed, index), so training runs without a corpus on disk.
 
@@ -21,6 +22,7 @@ import numpy as np
 from tinyrecurrentunet_torch.config import TrainsetConfig
 from tinyrecurrentunet_torch.data.audio_io import read_wav
 from tinyrecurrentunet_torch.data.augment import DataAugment, lowpass_biquad
+from tinyrecurrentunet_torch.data.loader import DataLoader
 
 
 def _sorted_dns(names: Sequence[str]):
@@ -127,6 +129,31 @@ def _fit_length(x: np.ndarray, length: int, rng: np.random.Generator):
         reps = int(np.ceil(length / max(len(x), 1)))
         x = np.tile(x, reps)
     return x[:length]
+
+
+def load_clean_noisy_dataloader(
+    cfg: TrainsetConfig,
+    subset: str,
+    batch_size: int,
+    num_shards: int = 1,
+    shard_index: int = 0,
+    shuffle: bool | None = None,
+):
+    """`CleanNoisyPairDataset` and a `DataLoader` over it in one call: the
+    training subset shuffled with its last partial batch dropped, the testing
+    subset in order (unless `shuffle` says otherwise), the index space cut
+    into `num_shards` shards."""
+    dataset = CleanNoisyPairDataset(cfg, subset=subset)
+    if shuffle is None:
+        shuffle = subset == "training"
+    return DataLoader(
+        dataset,
+        batch_size=batch_size,
+        shuffle=shuffle,
+        drop_last=subset == "training",
+        num_shards=num_shards,
+        shard_index=shard_index,
+    )
 
 
 class SyntheticPairDataset:

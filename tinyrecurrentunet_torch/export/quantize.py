@@ -1,22 +1,32 @@
-"""Reading the int8 weight packs of `tinyrecurrentunet_tpu/export/quantize.py`.
+"""The int8 weight packs of `tinyrecurrentunet_tpu/export/quantize.py`:
+writing and reading.
 
 A pack holds every parameter as symmetric per-tensor int8 (one float32
 scale per tensor) and the BatchNorm running statistics as float32. TRQ2 is
 a zlib'd JSON manifest (names, shapes, offsets, scales, the artifact's
 decode-critical meta) followed by one little-endian payload, zlib'd when
-that is smaller; the older format is a zip of npy files. Names are the JAX
-package's paths through the variables tree, "['Block_0']/['Dense_0']/['kernel']".
+that is smaller; the older format is a zip of npy files, which this module
+reads only. Names are the JAX package's paths through the variables tree,
+"['Block_0']/['Dense_0']/['kernel']".
 
-This module reads both formats without JAX and rebuilds the variables as
-nested dicts of numpy arrays in the JAX layout, which
-`weights.state_dict_from_variables` maps onto the port's model. Writing a
-pack stays with the JAX package's export (ROADMAP).
+Variables are nested dicts of numpy arrays in the JAX layout, as
+`weights.read_npz` and `weights.variables_from_state_dict` give them and
+`weights.state_dict_from_variables` maps onto the port's model. The writer
+walks them as JAX walks a pytree (keys sorted at every level) and computes
+the scales in numpy float64, so a pack written here is the JAX writer's
+pack of the same variables, byte for byte.
+
+Usage:
+    python -m tinyrecurrentunet_torch.export.quantize -c config/proc16k.json \
+        --pretrained artifacts/TRUNet-proc [--out <dir>/model_int8.trq]
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
+import os
 import struct
 import zipfile
 import zlib
@@ -40,6 +50,67 @@ def _map_tree(tree: Mapping, fn: Callable[[str, Any], Any], prefix: tuple = ()) 
     return out
 
 
+def _flatten(tree: Mapping, prefix: tuple = ()):
+    """(pack name, leaf) of every leaf, in JAX's pytree order: the keys of
+    every dict sorted."""
+    for key in sorted(tree):
+        path = prefix + (key,)
+        value = tree[key]
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield "/".join(f"['{k}']" for k in path), np.asarray(value)
+
+
+def quantize_params(params: Mapping) -> dict:
+    """-> name -> (int8 values, float32 scale), symmetric per tensor: the
+    scale is max|w| / 127 (1 for an all-zero tensor), the values w / scale
+    rounded and clipped to +-127."""
+    out = {}
+    for name, arr in _flatten(params):
+        scale = float(np.max(np.abs(arr))) / 127.0
+        if scale == 0.0:
+            scale = 1.0
+        q = np.clip(np.round(arr / scale), -127, 127).astype(np.int8)
+        out[name] = (q, np.float32(scale))
+    return out
+
+
+def save_quantized(path: str, params: Mapping, batch_stats: Mapping | None = None, meta: dict | None = None) -> int:
+    """Write a TRQ2 pack of `params` (int8) and `batch_stats` (float32) with
+    `meta` (values stored as strings); returns its size in bytes."""
+    quantized = quantize_params(params)
+    manifest = {"tensors": [], "stats": [], "payload": "raw"}
+    if meta:
+        manifest["meta"] = {k: str(v) for k, v in meta.items()}
+    chunks = []
+    offset = 0
+    for name, (q, scale) in quantized.items():
+        raw = np.ascontiguousarray(q, "<i1").tobytes()
+        manifest["tensors"].append({"n": name, "s": list(q.shape), "o": offset, "scale": float(scale)})
+        chunks.append(raw)
+        offset += len(raw)
+    if batch_stats is not None:
+        for name, arr in _flatten(batch_stats):
+            raw = np.ascontiguousarray(arr, "<f4").tobytes()
+            manifest["stats"].append({"n": name, "s": list(arr.shape), "o": offset})
+            chunks.append(raw)
+            offset += len(raw)
+    payload = b"".join(chunks)
+    deflated = zlib.compress(payload, 9)
+    if len(deflated) < len(payload):
+        manifest["payload"] = "zlib"
+        payload = deflated
+    header = zlib.compress(json.dumps(manifest, separators=(",", ":")).encode(), 9)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_TRQ2_MAGIC)
+        f.write(struct.pack("<I", len(header)))
+        f.write(header)
+        f.write(payload)
+    return os.path.getsize(path)
+
+
 def dequantize_params(quantized: dict, target_params: Mapping) -> dict:
     """The float32 parameters of a pack, in the structure of
     `target_params` (nested dicts of arrays; their values are ignored)."""
@@ -52,6 +123,17 @@ def dequantize_params(quantized: dict, target_params: Mapping) -> dict:
         return arr
 
     return _map_tree(target_params, leaf)
+
+
+def int8_state_dict(state_dict: Mapping) -> dict:
+    """A state_dict of the port's model with its parameters through the
+    pack's quantize and dequantize; the BatchNorm statistics stay float32,
+    as in a pack."""
+    from tinyrecurrentunet_torch.weights import state_dict_from_variables, variables_from_state_dict
+
+    variables = variables_from_state_dict(state_dict)
+    params = dequantize_params(quantize_params(variables["params"]), variables["params"])
+    return state_dict_from_variables({"params": params, "batch_stats": variables["batch_stats"]})
 
 
 def restore_batch_stats(stats_by_name: dict, target_stats: Mapping) -> dict:
@@ -113,3 +195,27 @@ def _load_quantized_v1(path: str):
             elif kind == "stats":
                 stats[name] = np.load(io.BytesIO(zf.read(info)))
     return {k: tuple(v) for k, v in quantized.items()}, stats
+
+
+def main(argv=None) -> int:
+    """Pack `<pretrained>/pretrained.npz` as an int8 .trq; returns its size."""
+    from tinyrecurrentunet_torch.config import load_config
+    from tinyrecurrentunet_torch.weights import artifact_meta, check_artifact_meta, read_npz
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("--pretrained", required=True, help="dir with pretrained.npz")
+    parser.add_argument("--out", default=None, help="output .trq path (default <pretrained>/model_int8.trq)")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.config)
+    npz = os.path.join(args.pretrained, "pretrained.npz")
+    variables, meta = read_npz(npz)
+    check_artifact_meta(meta, cfg, npz)
+    out = args.out or os.path.join(args.pretrained, "model_int8.trq")
+    size = save_quantized(out, variables["params"], variables["batch_stats"], meta=artifact_meta(cfg))
+    print(f"wrote {out} ({size / 1024:.1f} KB)")
+    return size
+
+
+if __name__ == "__main__":
+    main()

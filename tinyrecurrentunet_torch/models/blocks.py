@@ -27,11 +27,23 @@ statistics and its affine in float32 from the bf16 input (flax's
 Pallas kernels' edges (`ops.gru.gru_layer`).
 
 The GRU projects its inputs with one matmul and hands the recurrence to
-`ops.cuda_gru`: where a gradient is wanted (grad enabled and an input or
-weight of the recurrence requires one), in either mode, the autograd
-Function `GRURecurrence` (kernels `gru_fwd_train` and the BPTT); otherwise,
-as under `torch.inference_mode()` or `no_grad`, `gru_recurrence` (kernel
-`gru_fwd`). Tensors on the CPU run the plain PyTorch versions.
+the implementation that `use_pallas_gru` (`network.use_pallas_gru`) names:
+
+- "auto" (the default) and "always": `ops.cuda_gru`. Where a gradient is
+  wanted (grad enabled and an input or weight of the recurrence requires
+  one), in either mode, the autograd Function `GRURecurrence` (kernels
+  `gru_fwd_train` and the BPTT); otherwise, as under
+  `torch.inference_mode()` or `no_grad`, `gru_recurrence` (kernel
+  `gru_fwd`). Tensors on the CPU run the plain PyTorch versions; CUDA
+  tensors launch the kernels or raise. Unlike the JAX package, whose "auto"
+  takes its Pallas kernels only at the shapes its TPU policy
+  (`pallas_gru_shape_ok`) picks, "auto" here takes the kernels at every
+  shape, so the two values are one.
+- "never": the plain PyTorch versions of `ops/gru.py` on any device
+  (`PlainGRURecurrence` where a gradient is wanted), which launch none of
+  the port's kernels. The caller asks for it; nothing falls back to it.
+
+Any other value raises.
 """
 
 from __future__ import annotations
@@ -43,7 +55,10 @@ from torch import nn
 from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.ops import conv as conv_ops
 from tinyrecurrentunet_torch.ops import cuda_gru
+from tinyrecurrentunet_torch.ops import gru as gru_ops
 from tinyrecurrentunet_torch.ops.gru import gru_layer
+
+GRU_IMPLEMENTATIONS = ("auto", "always", "never")  # values of network.use_pallas_gru
 
 
 def _zeros(*shape, device=None) -> nn.Parameter:
@@ -194,11 +209,15 @@ class GRU(nn.Module):
     direction (B, H)).
     """
 
-    def __init__(self, in_features: int, hidden: int, bidirectional: bool = False, dtype=None, device=None):
+    def __init__(self, in_features: int, hidden: int, bidirectional: bool = False, dtype=None,
+                 use_pallas_gru: str = "auto", device=None):
         super().__init__()
+        if use_pallas_gru not in GRU_IMPLEMENTATIONS:
+            raise ValueError(f"use_pallas_gru {use_pallas_gru!r}: one of {GRU_IMPLEMENTATIONS}")
         self.hidden = hidden
         self.bidirectional = bidirectional
         self.dtype = dtype
+        self.use_pallas_gru = use_pallas_gru
         for d in ("fwd", "bwd") if bidirectional else ("fwd",):
             self.register_parameter(f"wi_{d}", _zeros(in_features, 3 * hidden, device=device))
             self.register_parameter(f"wh_{d}", _zeros(hidden, 3 * hidden, device=device))
@@ -214,10 +233,11 @@ class GRU(nn.Module):
         params = [getattr(self, f"{name}_{d}") for name in ("wi", "wh", "bi", "bh")]
         if self.dtype is not None:
             x, params = x.to(self.dtype), [p.to(self.dtype) for p in params]
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h0, *params)):
-            recurrence = cuda_gru.GRURecurrence.apply
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, h0, *params))
+        if self.use_pallas_gru == "never":
+            recurrence = gru_ops.PlainGRURecurrence.apply if grad else gru_ops.gru_recurrence
         else:
-            recurrence = cuda_gru.gru_recurrence
+            recurrence = cuda_gru.GRURecurrence.apply if grad else cuda_gru.gru_recurrence
         return gru_layer(x, h0, *params, recurrence, reverse)
 
     def forward(self, x, h0=None):
@@ -233,10 +253,12 @@ class GRU(nn.Module):
 class GRUBlock(nn.Module):
     """GRU -> 1x1 projection -> BN -> ReLU."""
 
-    def __init__(self, in_features, hidden, out_features, bidirectional=False, dtype=None, device=None):
+    def __init__(self, in_features, hidden, out_features, bidirectional=False, dtype=None,
+                 use_pallas_gru: str = "auto", device=None):
         super().__init__()
         dirs = 2 if bidirectional else 1
-        self.GRU_0 = GRU(in_features, hidden, bidirectional, dtype=dtype, device=device)
+        self.GRU_0 = GRU(in_features, hidden, bidirectional, dtype=dtype, use_pallas_gru=use_pallas_gru,
+                         device=device)
         self.Dense_0 = Dense(dirs * hidden, out_features, dtype=dtype, device=device)
         self.BatchNorm_0 = BatchNorm(out_features, dtype=dtype, device=device)
 

@@ -54,10 +54,13 @@ class TRUNet(nn.Module):
                 self.add_module(f"DepthwiseSeparableConv1d_{i - 1}", block)
             channels = feat
             enc_out.append(feat)
+        gru = cfg.use_pallas_gru
         self.GRUBlock_0 = GRUBlock(
-            channels, cfg.fgru_hidden, cfg.fgru_out, bidirectional=True, dtype=dtype, device=device
+            channels, cfg.fgru_hidden, cfg.fgru_out, bidirectional=True, dtype=dtype, use_pallas_gru=gru,
+            device=device,
         )
-        self.GRUBlock_1 = GRUBlock(cfg.fgru_out, cfg.tgru_hidden, cfg.tgru_out, dtype=dtype, device=device)
+        self.GRUBlock_1 = GRUBlock(cfg.fgru_out, cfg.tgru_hidden, cfg.tgru_out, dtype=dtype, use_pallas_gru=gru,
+                                   device=device)
 
         dec = cfg.decoder
         self.TrCNNBlock_0 = TrCNNBlock(cfg.tgru_out, *dec[0], dtype=dtype, device=device)

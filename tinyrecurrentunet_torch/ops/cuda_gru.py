@@ -596,23 +596,10 @@ def _launch_sum(part, hidden, plan=None):
     return dw[: 3 * hidden * hidden].view(hidden, 3 * hidden), dw[3 * hidden * hidden :]
 
 
-class GRURecurrence(torch.autograd.Function):
-    """The trainable recurrence: (x_proj, h0, wh, bh, reverse) -> (outputs,
-    h after the last step walked). Counterpart of the custom VJP of
-    `tinyrecurrentunet_tpu/ops/pallas_gru_vjp.py` over the recurrence alone.
-    """
-
-    @staticmethod
-    def forward(ctx, x_proj, h0, wh, bh, reverse):
-        out, h_last, saved = gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
-        ctx.save_for_backward(out, saved, h0, wh)
-        ctx.reverse = reverse
-        return out, h_last
-
-    @staticmethod
-    def backward(ctx, g_out, g_hT):
-        out, saved, h0, wh = ctx.saved_tensors
-        d_xp, dwh, dbh, dh0 = gru_recurrence_bwd(
-            g_out.contiguous(), g_hT.contiguous(), out, saved, h0, wh, reverse=ctx.reverse
-        )
-        return d_xp, dh0, dwh, dbh, None
+GRURecurrence = gru_ops.recurrence_function(
+    "GRURecurrence", gru_recurrence_train, gru_recurrence_bwd,
+    """The trainable recurrence: forward `gru_recurrence_train`, backward
+    `gru_recurrence_bwd` (the kernels on a card, the plain versions on the
+    CPU). Counterpart of the custom VJP of
+    `tinyrecurrentunet_tpu/ops/pallas_gru_vjp.py` over the recurrence alone.""",
+)

@@ -165,6 +165,37 @@ def gru_weight_grads(
     return dwh, d_hp.sum(dim=(0, 1))
 
 
+def recurrence_function(name: str, train, bwd, doc: str) -> type[torch.autograd.Function]:
+    """A trainable recurrence `name`, the autograd Function (x_proj, h0, wh,
+    bh, reverse) -> (outputs, h after the last step walked), whose forward is
+    train(x_proj, h0, wh, bh, reverse) -> (outputs, h, saved) and whose
+    backward is bwd(g, g_hT, out, saved, h0, wh, reverse) -> (d_xp, dWh,
+    dbh, dh0). The input projection and its gradients stay plain matmuls
+    outside, as in the JAX package."""
+
+    def forward(ctx, x_proj, h0, wh, bh, reverse):
+        out, h_last, saved = train(x_proj, h0, wh, bh, reverse=reverse)
+        ctx.save_for_backward(out, saved, h0, wh)
+        ctx.reverse = reverse
+        return out, h_last
+
+    def backward(ctx, g_out, g_hT):
+        out, saved, h0, wh = ctx.saved_tensors
+        d_xp, dwh, dbh, dh0 = bwd(g_out.contiguous(), g_hT.contiguous(), out, saved, h0, wh, reverse=ctx.reverse)
+        return d_xp, dh0, dwh, dbh, None
+
+    # built with type() so that autograd names the node `<name>Backward`
+    return type(name, (torch.autograd.Function,),
+                {"forward": staticmethod(forward), "backward": staticmethod(backward), "__doc__": doc})
+
+
+PlainGRURecurrence = recurrence_function(
+    "PlainGRURecurrence", gru_recurrence_train, gru_recurrence_bwd,
+    """The trainable recurrence in plain PyTorch on any device, which
+    launches none of the port's kernels (`network.use_pallas_gru` "never").""",
+)
+
+
 def gru_scan(
     x: torch.Tensor,
     h0: torch.Tensor,

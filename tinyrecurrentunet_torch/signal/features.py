@@ -3,7 +3,7 @@
 Counterpart of `tinyrecurrentunet_tpu/signal/features.py`: rectangular-window
 STFT, then the channels in config order — normalised dB log-magnitude
 clamped to [-1, 1], PCEN, and sin/cos of the phase unwrapped along time
-(axis -2). The streaming path (`init_state`, `step_from_spec_frame`) takes
+(axis -2); `inverse` turns features back into a waveform. The streaming path (`init_state`, `step_from_spec_frame`) takes
 one spectrum frame at a time and carries the unwrap and PCEN state in a
 `FeaturizerState`.
 """
@@ -17,7 +17,7 @@ import torch
 
 from tinyrecurrentunet_torch.config import FeaturizerConfig
 from tinyrecurrentunet_torch.signal.pcen import pcen, pcen_step
-from tinyrecurrentunet_torch.signal.phase import demod_phase, unwrap_step
+from tinyrecurrentunet_torch.signal.phase import demod_phase, mod_phase, unwrap_step
 from tinyrecurrentunet_torch.signal.stft import istft as _istft
 from tinyrecurrentunet_torch.signal.stft import stft as _stft
 
@@ -56,6 +56,17 @@ def denorm_db(
         + min_level_db
         + ref_level_db
     )
+
+
+def to_reference_layout(features: torch.Tensor) -> torch.Tensor:
+    """(..., T, F, C) -> (..., T, C, F), the reference's tensor layout, which
+    the ONNX and TorchScript artifacts take and return."""
+    return features.transpose(-1, -2)
+
+
+def from_reference_layout(features: torch.Tensor) -> torch.Tensor:
+    """(..., T, C, F) -> (..., T, F, C)."""
+    return features.transpose(-1, -2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +160,22 @@ class Featurizer:
     def split_channels(self, features: torch.Tensor) -> dict:
         """(..., C) feature tensor -> {channel_name: (...)} dict."""
         return {name: features[..., i] for i, name in enumerate(self.config.channels)}
+
+    def complex_spec(
+        self, logmag_norm: torch.Tensor, real_demod: torch.Tensor, imag_demod: torch.Tensor
+    ) -> torch.Tensor:
+        """The complex spec of a normalised log-magnitude and a demodulated
+        phase: magnitude from `denorm_db`, phase re-modulated (`mod_phase`)."""
+        wrap = mod_phase(real_demod, imag_demod)
+        magnitude = db_to_amp(denorm_db(logmag_norm, self.config.min_level_db, self.config.ref_level_db))
+        return torch.complex(magnitude * torch.cos(wrap), magnitude * torch.sin(wrap))
+
+    def inverse(self, features: torch.Tensor, length: int | None = None) -> torch.Tensor:
+        """Features (..., T, F, C) -> waveform (..., L), from the logmag and
+        demod channels."""
+        ch = self.split_channels(features)
+        spec = self.complex_spec(ch["logmag"], ch["real_demod"], ch["imag_demod"])
+        return self.istft(spec, length=length)
 
     def istft(self, spec: torch.Tensor, length: int | None = None) -> torch.Tensor:
         return _istft(

@@ -18,13 +18,18 @@ matmuls and the counter counts it. The MFU is against the card's published
 peak for the row's dtype (`utils.profiling.peak_flops`: float32 with TF32
 off, as training runs, or bf16); without a card it is None.
 
-The kernel A/B of the JAX study (`run_kernel_ab`, `use_pallas_gru`) and its
-`lax.scan` unroll A/B have no counterpart here: the port runs its kernels at
-every shape.
+The kernel A/B (`run_kernel_ab`, and `run_study`'s `train_kernel_ab`
+block): the float32 step with `network.use_pallas_gru` "never" (the plain
+PyTorch recurrence and BPTT, no kernel of the port) against "always" (the
+five CUDA kernels), each row a ladder row plus `use_pallas_gru`. The JAX
+study's `lax.scan` unroll A/B (`train_unroll_ab`) has no counterpart: the
+port has no `lax.scan`, so its block is empty and the result says why.
 
 Usage:
     python -m tinyrecurrentunet_torch.train.scaling -c config/proc16k.json \
         [--batches 16,32,64,128] [--out scaling.json] [--device cpu]
+    python -m tinyrecurrentunet_torch.train.scaling -c config/proc16k.json \
+        --kernel_ab_only --batches 64 [--ab_dtypes float32] [--out scaling.json]
 """
 
 from __future__ import annotations
@@ -69,16 +74,26 @@ def gru_kernel_flops(cfg: Config, batch: int, num_sms: int) -> int:
 
 
 def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int = 30, reps_lo: int = 6,
-                       device: str | torch.device = "cuda") -> dict:
+                       device: str | torch.device = "cuda", use_pallas_gru: str | None = None) -> dict:
     """One study row: the train step of `cfg` at `batch` clips computing in
-    `compute_dtype` ("float32" or "bfloat16"), on seeded noise."""
+    `compute_dtype` ("float32" or "bfloat16"), on seeded noise; with
+    `use_pallas_gru`, the GRU implementation that value names."""
     from torch.utils.flop_counter import FlopCounterMode
 
     device = resolve_device(device)
     opt = dataclasses.replace(cfg.train.optimization, batch_size_per_device=batch, train_compute_dtype=compute_dtype)
     tcfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, optimization=opt))
+    if use_pallas_gru is not None:
+        tcfg = dataclasses.replace(tcfg, network=dataclasses.replace(tcfg.network, use_pallas_gru=use_pallas_gru))
     state = create_train_state(tcfg, device=device)
-    step = make_train_step(tcfg)
+    train_step = make_train_step(tcfg)
+    steps = 0
+
+    def step(*args):
+        nonlocal steps
+        steps += 1
+        return train_step(*args)
+
     length = int(tcfg.trainset.crop_length_sec * tcfg.trainset.sample_rate)
     rng = np.random.default_rng(0)
     clean = (rng.standard_normal((batch, length)) * 0.1).astype(np.float32)
@@ -86,10 +101,11 @@ def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int
     clean, noisy = torch.from_numpy(clean).to(device), torch.from_numpy(noisy).to(device)
 
     on_card = device.type == "cuda"
+    kernels = on_card and tcfg.network.use_pallas_gru != "never"
     with FlopCounterMode(display=False) as counter:
         step(state, clean, noisy)
     counted = counter.get_total_flops()
-    gru_flops = gru_kernel_flops(tcfg, batch, torch.cuda.get_device_properties(device).multi_processor_count) if on_card else 0
+    gru_flops = gru_kernel_flops(tcfg, batch, torch.cuda.get_device_properties(device).multi_processor_count) if kernels else 0
     flops = counted + gru_flops
     for _ in range(2):
         step(state, clean, noisy)
@@ -110,10 +126,11 @@ def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int
         "gflops_per_step": flops / 1e9,
         "gru_kernel_gflops": gru_flops / 1e9,
         "flops": "FlopCounterMode (matmuls, convolutions) + the GRU kernels from their launch shapes"
-        if on_card else "FlopCounterMode (matmuls, convolutions; the plain GRU's among them)",
+        if kernels else "FlopCounterMode (matmuls, convolutions; the plain GRU's among them)",
         "peak_tflops": peak / 1e12 if peak else None,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
+        "steps": steps,  # train steps the row ran, warm-up and FLOP count included
     }
 
 
@@ -133,31 +150,92 @@ def measure_or_oom(cfg: Config, batch: int, dtype: str, **kw) -> dict:
     return {"batch": batch, "dtype": dtype, "oom": True}
 
 
-def run_study(cfg: Config, batches, out_path: str | None, device: str | torch.device = "cuda") -> dict:
-    """The ladder: one row per batch and dtype, float32 then bf16."""
+UNROLL_AB_NOTE = "no counterpart: gru_scan_unroll is lax.scan's unroll factor, and the port has no lax.scan"
+
+
+def kernel_ab_rows(cfg: Config, batches, dtypes=("float32",), **kw) -> list:
+    """The kernel A/B: at each batch and dtype, a "never" row then an
+    "always" row."""
     rows = []
     for batch in batches:
-        for dtype in ("float32", "bfloat16"):
-            row = measure_or_oom(cfg, batch, dtype, device=device)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
-    result = {"scaling": rows}
+        for dtype in dtypes:
+            for kernel in ("never", "always"):
+                row = measure_or_oom(cfg, batch, dtype, use_pallas_gru=kernel, **kw)
+                row["use_pallas_gru"] = kernel
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
+def _write(result: dict, out_path: str | None):
     if out_path:
         with open(out_path, "w") as f:
             json.dump(result, f, indent=2)
         print(f"wrote {out_path}")
+
+
+def run_study(cfg: Config, batches, out_path: str | None, device: str | torch.device = "cuda", **kw) -> dict:
+    """The ladder, one row per batch and dtype, float32 then bf16; then the
+    kernel A/B in float32."""
+    rows = []
+    for batch in batches:
+        for dtype in ("float32", "bfloat16"):
+            row = measure_or_oom(cfg, batch, dtype, device=device, **kw)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    # at the smallest and the largest batch that fit; a pair with a row that
+    # runs out of memory is measured again at half the batch
+    fits = sorted({r["batch"] for r in rows if not r.get("oom")})
+    kernel_ab = []
+    for batch in sorted({fits[0], fits[-1]}) if fits else []:
+        while batch >= 2:
+            pair = kernel_ab_rows(cfg, [batch], device=device, **kw)
+            kernel_ab.extend(pair)
+            if all("step_ms" in r for r in pair):
+                break
+            batch //= 2
+    result = {
+        "scaling": rows,
+        "train_kernel_ab": kernel_ab,
+        "train_unroll_ab": [],
+        "train_unroll_ab_note": UNROLL_AB_NOTE,
+    }
+    _write(result, out_path)
     return result
 
 
-def main(argv=None) -> dict:
+def run_kernel_ab(cfg: Config, batches, out_path: str | None, dtypes=("float32",),
+                  device: str | torch.device = "cuda", **kw) -> list:
+    """The kernel A/B alone at `batches` and `dtypes`; with `out_path`, it
+    replaces the `train_kernel_ab` block of the study file there (the ladder
+    is not run again)."""
+    rows = kernel_ab_rows(cfg, batches, dtypes, device=device, **kw)
+    if out_path:
+        try:
+            with open(out_path) as f:
+                result = json.load(f)
+        except (OSError, ValueError):
+            result = {"scaling": [], "train_unroll_ab": [], "train_unroll_ab_note": UNROLL_AB_NOTE}
+        result["train_kernel_ab"] = rows
+        _write(result, out_path)
+    return rows
+
+
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("--batches", default="16,32,64,128")
     parser.add_argument("--out", default=None, help="write the study's JSON here")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--kernel_ab_only", action="store_true",
+                        help="only the kernel A/B at --batches, merged into --out")
+    parser.add_argument("--ab_dtypes", default="float32")
     args = parser.parse_args(argv)
+    cfg = load_config(args.config)
     batches = [int(b) for b in args.batches.split(",")]
-    return run_study(load_config(args.config), batches, args.out, device=args.device)
+    if args.kernel_ab_only:
+        return run_kernel_ab(cfg, batches, args.out, tuple(args.ab_dtypes.split(",")), device=args.device)
+    return run_study(cfg, batches, args.out, device=args.device)
 
 
 if __name__ == "__main__":
