@@ -619,3 +619,58 @@ def test_use_pallas_gru_routes_by_launch_counts(card, value):
     y_cpu, grad_cpu = run(model_cpu, "cpu")
     assert (y - y_cpu).abs().max().item() <= ATOL
     assert _rel(grad, grad_cpu) <= 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows,steps,hidden,splits", [
+    (37, 11, 256, None),  # large16k's FGRU width: rows not a multiple of the 8-row block, T odd
+    (13, 9, 512, None),   # its TGRU width: 2 rows a block, a ragged last block
+    (37, 11, 256, 3),     # the reduction over more splits than the plan gives
+    (13, 9, 512, 2),
+])
+def test_general_bptt_and_simt_reduction_at_large16k_widths(card, rows, steps, hidden, splits, reverse):
+    """The paths only large16k's training takes: the general `gru_bwd`, the
+    SIMT `gru_dw_partial` and `gru_dw_sum` at H 256 and 512, against the
+    plain versions; the launches by path."""
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
+    g, g_hT = _grads(rows, steps, hidden, rows + steps, card)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    want = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    cuda_gru.reset_launch_counts()
+    d_xp, dh0 = cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    plan = None if splits is None else (splits, -(-rows * steps // splits))
+    part = cuda_gru._launch_dw(out, h0, want[0], saved, reverse, plan=plan)
+    dwh, dbh = cuda_gru.dw_sum(part, hidden)
+    torch.cuda.synchronize()
+    assert cuda_gru.last_bwd_plan == ("general", cuda_gru.rows_per_block(rows, hidden, cuda_gru._num_sms(card)))
+    assert cuda_gru.launch_paths() == {"gru_bwd": {"general": 1}, "gru_dw_partial": {"simt": 1},
+                                       "gru_dw_sum": {"sum": 1}}
+    torch.testing.assert_close(d_xp, want[0], rtol=0, atol=ATOL)
+    torch.testing.assert_close(dh0, want[3], rtol=0, atol=ATOL)
+    assert _rel(dwh, want[1]) <= 1e-4
+    assert _rel(dbh, want[2]) <= 1e-4
+
+
+@pytest.mark.parametrize("config,artifact,path", [
+    ("large16k", "TRUNet-large", "cluster"),
+    ("proc48k", "TRUNet-proc48", "registers"),
+])
+def test_shipped_model_denoises_on_card_as_on_cpu(card, config, artifact, path):
+    """The two other shipped models with their committed weights: 1 s at the
+    config's rate on the card against the CPU at 2e-4 (chip_smoke.py's
+    DENOISE_ATOL), 3 gru_fwd a call on the path the hidden sizes take."""
+    from tinyrecurrentunet_torch.config import load_config
+    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+
+    cfg = load_config(os.path.join(REPO, "config", f"{config}.json"))
+    directory = os.path.join(REPO, "artifacts", artifact)
+    sr = cfg.featurizer.sample_rate
+    t = np.arange(sr) / sr
+    clip = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.random.default_rng(0).standard_normal(sr)).astype(np.float32)
+    den = Denoiser.from_pretrained(cfg, directory, device="cuda")
+    cuda_gru.reset_launch_counts()
+    out = den(clip)
+    assert cuda_gru.launch_paths() == {"gru_fwd": {path: 3}}
+    ref = Denoiser.from_pretrained(cfg, directory, device="cpu")(clip)
+    assert np.isfinite(out).all() and out.shape == clip.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2e-4)

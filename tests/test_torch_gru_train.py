@@ -137,6 +137,18 @@ def test_cpu_tensors_launch_nothing():
     assert cuda_gru.launch_counts() == before
 
 
+def test_launch_paths_reset_with_the_counts_and_count_only_launches(monkeypatch):
+    """`launch_paths` splits the launches by path; `reset_launch_counts`
+    clears it, and the plain versions on CPU tensors record nothing."""
+    monkeypatch.setattr(cuda_gru, "_paths", {"gru_bwd": {"general": 2}})
+    assert cuda_gru.launch_paths() == {"gru_bwd": {"general": 2}}
+    cuda_gru.reset_launch_counts()
+    assert cuda_gru.launch_paths() == {} and set(cuda_gru.launch_counts().values()) == {0}
+    args, g_out, g_h = _inputs(2, 3, 4, 8, seed=1)
+    _port(args, g_out, g_h, reverse=True)
+    assert cuda_gru.launch_paths() == {}
+
+
 def _bwd_args(rows=4, steps=3, hidden=8):
     return (torch.zeros(rows, steps, hidden), torch.zeros(rows, hidden),
             torch.zeros(rows, steps, hidden), torch.zeros(rows, steps, 4 * hidden),

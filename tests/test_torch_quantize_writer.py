@@ -28,7 +28,6 @@ from tinyrecurrentunet_tpu.models import TRUNet as JaxTRUNet
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARTIFACT = os.path.join(REPO, "artifacts", "TRUNet-proc")
 TINY = dict(
     encoder=((8, 5, 2), (16, 3, 1), (16, 5, 2), (16, 3, 2)),
     fgru_hidden=8, fgru_out=8, tgru_hidden=16, tgru_out=8,
@@ -81,15 +80,21 @@ def test_quantize_params_match_jax(tiny_variables):
         assert got[name][1] == want[name][1] and got[name][1].dtype == np.float32
 
 
-def test_cli_packs_the_shipped_flagship_byte_for_byte(tmp_path):
-    """python -m tinyrecurrentunet_torch.export.quantize -c config/proc16k.json
-    --pretrained artifacts/TRUNet-proc --out X writes the committed pack."""
+@pytest.mark.parametrize("config,artifact,size", [
+    ("proc16k", "TRUNet-proc", 343_200),
+    ("large16k", "TRUNet-large", 3_676_296),
+    ("proc48k", "TRUNet-proc48", 350_731),
+], ids=["proc16k", "large16k", "proc48k"])
+def test_cli_packs_the_shipped_flagship_byte_for_byte(tmp_path, config, artifact, size):
+    """python -m tinyrecurrentunet_torch.export.quantize -c config/<config>.json
+    --pretrained artifacts/<artifact> --out X writes the committed pack, for
+    each of the three shipped models."""
     out = str(tmp_path / "model_int8.trq")
-    size = tquant.main(["-c", os.path.join(REPO, "config", "proc16k.json"), "--pretrained", ARTIFACT, "--out", out])
-    assert size == os.path.getsize(os.path.join(ARTIFACT, "model_int8.trq")) == 343_200
-    assert filecmp.cmp(out, os.path.join(ARTIFACT, "model_int8.trq"), shallow=False)
-    cfg = tload_config(os.path.join(REPO, "config", "proc16k.json"))
-    assert tquant.load_quantized_meta(out) == {k: str(v) for k, v in artifact_meta(cfg).items()}
+    path, directory = os.path.join(REPO, "config", f"{config}.json"), os.path.join(REPO, "artifacts", artifact)
+    committed = os.path.join(directory, "model_int8.trq")
+    assert tquant.main(["-c", path, "--pretrained", directory, "--out", out]) == os.path.getsize(committed) == size
+    assert filecmp.cmp(out, committed, shallow=False)
+    assert tquant.load_quantized_meta(out) == {k: str(v) for k, v in artifact_meta(tload_config(path)).items()}
 
 
 def test_each_package_reads_the_others_pack(tmp_path, tiny_variables):

@@ -36,7 +36,7 @@ nothing moves to the CPU.
 
 Each kernel has a launch count (`launch_counts()`): its wrapper adds one
 where it launches the kernel, and nowhere else. `launches` is the count of
-`gru_fwd`.
+`gru_fwd`. `launch_paths()` splits the same launches by the path each took.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ fwd_train_launches = 0
 bwd_launches = 0
 dw_partial_launches = 0
 dw_sum_launches = 0
+_paths: dict[str, dict[str, int]] = {}  # kernel -> path -> launches (launch_paths)
 
 _MAX_HIDDEN = 1024  # one thread per hidden unit, one block per row tile
 _DW_TILE = 64  # the output tile of gru_dw_partial_kernel
@@ -134,9 +135,23 @@ def launch_counts() -> dict[str, int]:
     }
 
 
+def launch_paths() -> dict[str, dict[str, int]]:
+    """Launches of each kernel since the counts were last reset, by the path
+    each took: `gru_fwd` and `gru_fwd_train` "registers", "cluster" or
+    "general"; `gru_bwd` "registers" or "general"; `gru_dw_partial`
+    "tensor_cores" or "simt"; `gru_dw_sum` "sum"."""
+    return {kernel: dict(by_path) for kernel, by_path in _paths.items()}
+
+
+def _count_path(kernel: str, path: str):
+    by_path = _paths.setdefault(kernel, {})
+    by_path[path] = by_path.get(path, 0) + 1
+
+
 def reset_launch_counts():
     global launches, fwd_train_launches, bwd_launches, dw_partial_launches, dw_sum_launches
     launches = fwd_train_launches = bwd_launches = dw_partial_launches = dw_sum_launches = 0
+    _paths.clear()
 
 
 def rows_per_block(rows: int, hidden: int, num_sms: int) -> int:
@@ -413,6 +428,7 @@ def _launch(x_proj, h0, wh, bh, reverse, plan=None):
     _raise_on_error(lib, err, f"gru_fwd {plan}", "trunet_cuda_error_string")
     launches += 1
     last_fwd_plan = plan
+    _count_path("gru_fwd", plan.path)
     return out, h_last
 
 
@@ -462,6 +478,7 @@ def _launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=None):
     _raise_on_error(lib, err, f"gru_fwd_train {plan}", error_string)
     fwd_train_launches += 1
     last_fwd_train_plan = plan
+    _count_path("gru_fwd_train", plan.path)
     return out, h_last, saved
 
 
@@ -520,6 +537,7 @@ def _launch_bwd(g, g_hT, out, saved, h0, wh, reverse, plan=None):
     _raise_on_error(lib, err, f"gru_bwd {plan}", "trunet_gru_train_error_string")
     bwd_launches += 1
     last_bwd_plan = plan
+    _count_path("gru_bwd", plan.path)
     return d_xp, dh0
 
 
@@ -561,6 +579,7 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
     last_dw_plan = (tensor_cores, splits, per_split)
     _raise_on_error(lib, err, f"gru_dw_partial {last_dw_plan}", "trunet_gru_train_error_string")
     dw_partial_launches += 1
+    _count_path("gru_dw_partial", "tensor_cores" if tensor_cores else "simt")
     return part
 
 
@@ -593,6 +612,7 @@ def _launch_sum(part, hidden, plan=None):
     _raise_on_error(lib, err, f"gru_dw_sum {plan}", "trunet_gru_train_error_string")
     dw_sum_launches += 1
     last_sum_plan = plan
+    _count_path("gru_dw_sum", "sum")
     return dw[: 3 * hidden * hidden].view(hidden, 3 * hidden), dw[3 * hidden * hidden :]
 
 
