@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and artifacts/TRUNet-proc/pretrained.npz on a seeded 4 s clip, with the
    launch counts set to 0 just before and read just after; check the output
    against the same Denoiser in float64 on the CPU (its float32 run there
-   logged beside it), then time warm calls;
+   logged beside it), the same for the clip led by 0.5 s of digital
+   silence, then time warm calls;
 4. hold the training kernels (forward with residuals, BPTT, the two
    weight-gradient reduction kernels) against their plain versions at the
    flagship training step's three launch shapes (batch 64 of 2 s clips),
@@ -27,11 +28,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version, its bound and a PyTorch call computing the same function
    (torch.nn.GRU forward and backward, a matmul, a sum); check that the
    forward and the BPTT ran on their resident paths there (timing the
-   general kernels beside them) and that two sums of the same partials give
-   the same bits; hold the forward (out, h_T and saved each) and the BPTT
-   at one small ragged shape per path and direction, and the forward at
-   large16k's two training launch shapes (batch 16), timed beside the
-   general kernel;
+   general kernels and the SIMT reduction beside them, each held against
+   the plain version too) and that two calls of the BPTT, of the reduction
+   and of the sum on the same inputs give the same bits; hold the forward
+   (out, h_T and saved each) and the BPTT at one small ragged shape per
+   path and direction, and the forward at large16k's two training launch
+   shapes (batch 16), timed beside the general kernel;
 5. drive the training path: the port's `train()` on config/proc16k.json in
    float32 (train_compute_dtype cleared, nothing else changed), batch 64 of
    2 s synthetic clips, 5 steps, with the launch counts set to 0 just before
@@ -43,7 +45,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at one hop a call, with the launch counts set to 0 just before and read
    just after (3 gru_fwd a hop, nothing else); check it against the same
    streaming on the CPU and, at the 3-hop shift, against the card's offline
-   Denoiser.run; log per-hop latency at 1 and 4 hops a call (median, p99,
+   Denoiser.run; stream the clip led by 0.5 s of digital silence against
+   the same streaming on the CPU (its distances to float64 logged); log per-hop latency at 1 and 4 hops a call (median, p99,
    max, deadline misses against the hop, RTF, kernels a hop, the device's
    idle share), `MultiStreamDenoiser` at 1, 16, 64 and 256 streams (3 of 64
    streams checked against their single runs), a 10 s soak through the
@@ -105,13 +108,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the int8 pack, on 16 files of the procedural testset at each rate,
    against the JAX package's scores on the same files; (d) `train()` as
    shipped (bf16, batch 16) on large16k, proc48k and tbptt16k (8 s crops in
-   2 s TBPTT segments), launches by path, step time, audio-s per s, peak
-   memory, a profiled step, and large16k's clipped gradient against float32
-   on the card and against the CPU's bf16 step; (e) every kernel at the
-   launch shapes only these models give (large16k's training shapes on the
-   cluster forward, the general BPTT and the SIMT reduction; proc48k's
-   training and 1,602-frame serving shapes), held against its plain version
-   and timed beside its bound and its PyTorch call. Part (e) runs right
+   2 s TBPTT segments), launches by path (large16k's BPTT on "cluster" and
+   its reduction on the tensor cores, 12 each), step time, audio-s per s,
+   peak memory, a profiled step (device time by kind, the GRU kernels'
+   total), and large16k's clipped gradient against float32 on the card and
+   against the CPU's bf16 step; (e) every kernel at the launch shapes only
+   these models give (large16k's training shapes on the cluster forward,
+   the cluster BPTT and the tensor-core reduction, timed beside the general
+   BPTT and the SIMT reduction they replace; proc48k's training and
+   1,602-frame serving shapes), held against its plain version and timed
+   beside its bound and its PyTorch call. Part (e) runs right
    after phase 4, before any profiled training step: after those,
    torch.profiler lost the kernel records of whole readings.
 
@@ -219,6 +225,16 @@ ALIGN_RMS = 0.25
 ALIGN_MARGIN = 4.0
 STREAM_COUNTS = (1, 16, 64, 256)  # multi-stream batch sizes timed
 SOAK_SECONDS = 10.0
+# Phases 3 and 6 also denoise and stream the 4 s clip led by this much
+# digital silence: torch.fft.rfft gives an exactly-zero bin a real part of
+# -0.0 about half the time, and the featurizer puts such bins at +0 before
+# taking the phase (a bin at pi moved the JAX package's output by 5.5e-2).
+# Offline the card is held against float64 on the CPU (DENOISE_ATOL), as
+# the plain clip is. The stream is held against the same streaming on the
+# CPU (STREAM_ATOL), as the plain clip is: its float32 running unwrap puts
+# a float32 stream, the CPU's as much as the card's, ~8e-4 from float64 on
+# this clip (both distances to float64 are logged).
+SILENCE_SECONDS = 0.5
 
 # kind of a kernel in a profiled step, first match on its name
 KERNEL_KINDS = (
@@ -446,6 +462,36 @@ def make_clip(sample_rate: int, seed: int = 0) -> np.ndarray:
     return clip.astype(np.float32)
 
 
+def silence_led(clip: np.ndarray, sample_rate: int) -> np.ndarray:
+    """`clip` of the same length starting with SILENCE_SECONDS of digital
+    silence (exact zeros): the STFT bins of the silent frames are exactly 0,
+    whose phase the featurizer must take as 0, as the JAX package's FFT
+    gives it."""
+    lead = int(SILENCE_SECONDS * sample_rate)
+    return np.concatenate([np.zeros(lead, np.float32), clip[: len(clip) - lead]])
+
+
+def stream_cpu_f64(cfg, sd, clip: np.ndarray) -> np.ndarray:
+    """`clip` streamed at one hop a call on the CPU in float64: the model,
+    the samples and the stream's state (the reference of phase 6's
+    silence-led clip)."""
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser, StreamState
+
+    den = StreamingDenoiser(cfg, sd, device="cpu")
+    den.model.double()
+    den._input = lambda samples: torch.as_tensor(samples, dtype=torch.float64)
+    first = den.init_state
+
+    def init_state():
+        st = first()
+        f64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+        return StreamState(f64(st.in_buffer), type(st.feat_state)(*map(f64, st.feat_state)), f64(st.tgru_h),
+                           f64(st.ola_buffer))
+
+    den.init_state = init_state
+    return den.process(clip)[0]
+
+
 def crop_frames(cfg) -> int:
     """STFT frames of one training crop of the config."""
     return int(cfg.trainset.crop_length_sec * cfg.trainset.sample_rate) // cfg.featurizer.hop_length + 1
@@ -632,11 +678,13 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
     """Phase 4 (and 11) at one launch shape: each training kernel against
     its plain version on the same inputs, then timed: device time under
     torch.profiler ("ms") and CUDA events around the wrapper's call
-    ("call_ms"), the same two for the PyTorch call, and for `gru_fwd_train`
-    and `gru_bwd` the device time of the general kernel (the path itself
-    where the shape takes it). The forward, the BPTT and the reduction must
-    run on `paths` (default RESIDENT_TRAIN_PATHS). Returns one row per
-    kernel."""
+    ("call_ms"), the same two for the PyTorch call, for `gru_fwd_train` and
+    `gru_bwd` the device time of the general kernel and for `gru_dw_partial`
+    that of the SIMT kernel (the path itself where the shape takes it), each
+    held against the plain version too. The forward, the BPTT and the
+    reduction must run on `paths` (default RESIDENT_TRAIN_PATHS); the BPTT,
+    the reduction and the sum must give the same bits on a second call.
+    Returns one row per kernel."""
     paths = paths or RESIDENT_TRAIN_PATHS
     device = torch.device("cuda")
     x_proj, h0, wh, bh = gru_inputs(rows, steps, hidden, seed, device)
@@ -653,16 +701,24 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
     bwd_args = (g, g_hT, out, saved, h0, wh)
     d_xp, dh0 = cuda_gru.bptt(*bwd_args, reverse=reverse)
     bwd_plan = cuda_gru.last_bwd_plan
+    bwd_again = cuda_gru.bptt(*bwd_args, reverse=reverse)
     general = cuda_gru.BwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))
     gd_xp, gdh0 = cuda_gru._launch_bwd(*bwd_args, reverse, plan=general)
     p_dxp, p_dwh, p_dbh, p_dh0 = gru_ops.gru_recurrence_bwd(*bwd_args, reverse=reverse)
     part = cuda_gru.dw_partial(out, h0, p_dxp, saved, reverse=reverse)
     dw_plan = cuda_gru.last_dw_plan
+    part_again = cuda_gru.dw_partial(out, h0, p_dxp, saved, reverse=reverse)
+    simt = cuda_gru.DwPlan("simt", *cuda_gru.dw_splits(rows * steps, hidden, num_sms, "simt"))
+    simt_dwh, simt_dbh = cuda_gru.dw_sum(cuda_gru._launch_dw(out, h0, p_dxp, saved, reverse, plan=simt), hidden)
     dwh, dbh = cuda_gru.dw_sum(part, hidden)
     sum_plan = cuda_gru.last_sum_plan
     dw_again = torch.cat([t.reshape(-1) for t in cuda_gru.dw_sum(part, hidden)])
     dw_sum_want = part.sum(dim=0)
     torch.cuda.synchronize()
+    bit_identical = {
+        "gru_bwd": bool(torch.equal(d_xp, bwd_again[0]) and torch.equal(dh0, bwd_again[1])),
+        "gru_dw_partial": bool(torch.equal(part, part_again)),
+    }
     dw_got = torch.cat([dwh.reshape(-1), dbh])
     fwd_errors = fwd_train_errors(got, want)
     fwd_general_errors = fwd_train_errors(fwd_general_got, want)
@@ -678,6 +734,7 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
         "gru_dw_partial": max(max_rel(dwh, p_dwh), max_rel(dbh, p_dbh)),
         "gru_dw_sum": max_rel(dw_got, dw_sum_want),
     }
+    simt_rel = max(max_rel(simt_dwh, p_dwh), max_rel(simt_dbh, p_dbh))
     finite = all(bool(torch.isfinite(t).all()) for t in (*got, d_xp, dh0, dwh, dbh))
 
     fwd_lib, bwd_lib, lib_err = torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, out)
@@ -707,15 +764,17 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
             lambda: torch.sum(part, dim=0),
         ),
     }
-    # the general kernels, which these shapes do not take
+    # the general kernels and the SIMT reduction, which these shapes do not take
     generals = {
         "gru_fwd_train": lambda: cuda_gru._launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=fwd_general),
         "gru_bwd": lambda: cuda_gru._launch_bwd(*bwd_args, reverse, plan=general),
+        "gru_dw_partial": lambda: cuda_gru._launch_dw(out, h0, p_dxp, saved, reverse, plan=simt),
     }
     rows_out = []
     for kernel, (run, plain, library) in timing.items():
         nbytes, flops = train_kernel_work(kernel, rows, steps, hidden, part.shape[0])
-        bound_ms, bound_by = bound(nbytes, flops, tensor_cores=kernel == "gru_dw_partial" and dw_plan[0])
+        tensor_cores = kernel == "gru_dw_partial" and dw_plan.path == "tensor_cores"
+        bound_ms, bound_by = bound(nbytes, flops, tensor_cores=tensor_cores)
         # kernel, PyTorch call (and general kernel) in turns, the lower of two readings each
         turns = [(device_ms(run, launches=1), library_device_ms(library),
                   device_ms(generals[kernel], launches=1) if kernel in generals else None) for _ in range(2)]
@@ -729,7 +788,7 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
             "library_call_ms": cuda_ms(library, 10),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         }
-        if kernel in generals:
+        if kernel in ("gru_fwd_train", "gru_bwd"):
             row["general_ms"] = min(general_ms)
         if kernel == "gru_fwd_train":
             row["library_max_abs_err"] = lib_err
@@ -739,9 +798,13 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
         if kernel == "gru_bwd":
             row["path"], row["rows_per_tile"] = bwd_plan
             row["general_rows_per_block"], row["general_max_abs_err"] = general.rows_per_tile, general_err
+            row["bit_identical"] = bit_identical[kernel]
         if kernel == "gru_dw_partial":
-            row["path"] = "tensor_cores" if dw_plan[0] else "simt"
-            row["splits"], row["steps_per_split"] = dw_plan[1:]
+            row["path"], row["splits"], row["steps_per_split"] = dw_plan
+            # the float32 SIMT kernel, forced, and the float32 bound it has
+            row["simt_ms"], row["simt_splits"], row["simt_max_rel_err"] = min(general_ms), simt.splits, simt_rel
+            row["bound_ms_float32"] = bound(nbytes, flops)[0]
+            row["bit_identical"] = bit_identical[kernel]
         if kernel == "gru_dw_sum":
             row["cols"], row["groups"] = sum_plan
             row["bit_identical"] = bool(torch.equal(dw_got, dw_again))
@@ -749,8 +812,7 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
         rows_out.append(row)
     if not finite:
         raise AssertionError(f"training kernels {name}: non-finite output")
-    ran = {"gru_fwd_train": fwd_plan.path, "gru_bwd": bwd_plan.path,
-           "gru_dw_partial": "tensor_cores" if dw_plan[0] else "simt"}
+    ran = {"gru_fwd_train": fwd_plan.path, "gru_bwd": bwd_plan.path, "gru_dw_partial": dw_plan.path}
     for kernel, path in paths.items():
         if ran[kernel] != path:
             raise AssertionError(f"{kernel} {name}: ran on the {ran[kernel]} path, expected {path}")
@@ -758,11 +820,14 @@ def check_train_kernels(name, rows, steps, hidden, reverse, seed, cuda_gru, gru_
                         ("gru_bwd", errors["gru_bwd"]), ("gru_bwd general", general_err)):
         if err > KERNEL_ATOL:
             raise AssertionError(f"{kernel} {name}: max abs err {err:.3e} > {KERNEL_ATOL:.0e}")
-    for kernel, value in rel.items():
+    for kernel, value in (*rel.items(), ("gru_dw_partial simt", simt_rel)):
         if value > DW_RTOL:
             raise AssertionError(f"{kernel} {name}: max rel err {value:.3e} > {DW_RTOL:.0e}")
     if not torch.equal(dw_got, dw_again):
         raise AssertionError(f"gru_dw_sum {name}: two calls on the same partials differ")
+    for kernel, same in bit_identical.items():
+        if not same:
+            raise AssertionError(f"{kernel} {name}: two calls on the same inputs differ")
     return rows_out
 
 
@@ -1181,6 +1246,18 @@ def streaming_main_path(cfg, clip: np.ndarray, cuda_gru) -> dict:
     hop, sample_rate = cfg.featurizer.hop_length, cfg.featurizer.sample_rate
     budget_s = hop / sample_rate
     den, report = stream_clip(cfg, sd, clip, cuda_gru)
+    silent = silence_led(clip, sample_rate)
+    silent_out = den.process(silent)[0]
+    silent_cpu = StreamingDenoiser(cfg, sd, device="cpu").process(silent)[0]
+    silent_f64 = stream_cpu_f64(cfg, sd, silent)
+    silent_errs = {"card_vs_cpu": float(np.abs(silent_out - silent_cpu).max()),
+                   "card_vs_cpu_f64": float(np.abs(silent_out - silent_f64).max()),
+                   "cpu_vs_cpu_f64": float(np.abs(silent_cpu - silent_f64).max())}
+    log(f"[stream] silence-led clip ({SILENCE_SECONDS} s of zeros): max abs err {json.dumps(silent_errs)} "
+        f"(card vs CPU held to {STREAM_ATOL:.0e})")
+    if not np.isfinite(silent_out).all() or silent_errs["card_vs_cpu"] > STREAM_ATOL:
+        raise AssertionError(f"silence-led streaming card vs CPU {silent_errs['card_vs_cpu']:.3e} > {STREAM_ATOL:.0e}")
+    report["silence_led_max_abs_err"] = silent_errs
 
     latency = [stream_latency(den, clip, budget_s)]
     latency.append(stream_latency(StreamingDenoiser(cfg, sd, chunk_frames=4, device="cuda"), clip, 4 * budget_s))
@@ -1984,13 +2061,12 @@ def expected_train_paths(cfg, launches: int) -> dict:
     """Launches by path of the training kernels after `launches` updates of
     the config's model: the FGRU (two directions) and the TGRU, each on the
     path its hidden size takes (H 64 / 128: registers, registers, tensor
-    cores; H 256 / 512: cluster, general, SIMT)."""
+    cores; H 256 / 512: cluster, cluster, tensor cores)."""
     paths = {}
     for hidden, count in ((cfg.network.fgru_hidden, 2), (cfg.network.tgru_hidden, 1)):
-        resident = hidden in (64, 128)
-        for kernel, path in (("gru_fwd_train", "registers" if resident else "cluster"),
-                             ("gru_bwd", "registers" if resident else "general"),
-                             ("gru_dw_partial", "tensor_cores" if resident else "simt"), ("gru_dw_sum", "sum")):
+        resident = "registers" if hidden in (64, 128) else "cluster"
+        for kernel, path in (("gru_fwd_train", resident), ("gru_bwd", resident),
+                             ("gru_dw_partial", "tensor_cores"), ("gru_dw_sum", "sum")):
             by_path = paths.setdefault(kernel, {})
             by_path[path] = by_path.get(path, 0) + count * launches
     return paths
@@ -2059,11 +2135,14 @@ def shipped_training(name, cfg, steps: int, cuda_gru) -> dict:
     iter_ms = cuda_ms(lambda: iteration(state, clean, noisy), 3, 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = profile_port_step(iteration, state, clean, noisy, segments, f"[shipped] train {name}")
+    gru_ms = prof["device_ms_by_kind"].get("gru_kernels", 0.0)
+    log(f"[shipped] train {name}: iteration {iter_ms:.2f} ms (CUDA events), device {prof['device_ms']:.2f} ms "
+        f"of which the GRU kernels {gru_ms:.2f} ms, by kind {json.dumps(prof['device_ms_by_kind'])}")
     summary = {
         "model": name, "batch": batch, "crop_s": crop, "sample_rate": sample_rate, "segments": segments,
         "iterations": steps, "train_s": train_s, "iteration_ms_cuda_events": iter_ms,
         "audio_s_per_s": batch * crop / (iter_ms / 1e3), "peak_mem_gb": peak_gb, "launches": counts,
-        "paths": paths, "final_loss": metrics["loss"], "profile": prof,
+        "paths": paths, "final_loss": metrics["loss"], "profile": prof, "gru_kernels_device_ms": gru_ms,
     }
     log(f"[shipped] train {name} {json.dumps({k: v for k, v in summary.items() if k != 'profile'})}")
     del state
@@ -2087,8 +2166,10 @@ def shipped_kernels(models: dict, cuda_gru, gru_ops) -> tuple[list, list]:
     `gru_fwd` at proc48k's serving shapes (the 4 s clip, 1,602 frames), and
     all four training kernels at large16k's and proc48k's training shapes
     (batch 16 of 2 s crops), the FGRU in both directions: large16k's on the
-    paths only it takes (the cluster forward, the general BPTT, the SIMT
-    reduction). Returns (gru_fwd rows, training kernel rows)."""
+    paths only it takes (the cluster forward, the cluster BPTT, the
+    tensor-core reduction at H 256 / 512), beside the general BPTT and the
+    SIMT reduction it took before. Returns (gru_fwd rows, training kernel
+    rows)."""
     from tinyrecurrentunet_torch.infer.denoise import Denoiser
     from tinyrecurrentunet_torch.models import TRUNet
 
@@ -2108,7 +2189,7 @@ def shipped_kernels(models: dict, cuda_gru, gru_ops) -> tuple[list, list]:
         cfg = models[name]
         batch, frames = cfg.train.optimization.batch_size_per_device, crop_frames(cfg)
         fb = TRUNet(cfg.network, device="meta").bottleneck_freqs(cfg.featurizer.num_freqs)
-        paths = ({"gru_fwd_train": "cluster", "gru_bwd": "general", "gru_dw_partial": "simt"}
+        paths = ({"gru_fwd_train": "cluster", "gru_bwd": "cluster", "gru_dw_partial": "tensor_cores"}
                  if name == "large16k" else RESIDENT_TRAIN_PATHS)
         for i, (shape, r, t, h, rev) in enumerate((
                 (f"{name}_batch{batch}_fgru_fwd", batch * frames, fb, cfg.network.fgru_hidden, False),
@@ -2220,6 +2301,15 @@ def main() -> int:
         f"peak {errors['peak']:.3f}")
     if denoise_err > DENOISE_ATOL:
         raise AssertionError(f"denoise card vs CPU float64 {denoise_err:.3e} > {DENOISE_ATOL:.0e}")
+    silent = silence_led(clip, cfg.featurizer.sample_rate)
+    silent_out = denoiser(silent)
+    silent_errors = denoise_errors(cfg, ARTIFACT, silent, silent_out)
+    log(f"[main] silence-led clip ({SILENCE_SECONDS} s of zeros): max abs err card vs CPU float64 "
+        f"{silent_errors['card_vs_cpu_f64']:.3e} (tolerance {DENOISE_ATOL:.0e}), card vs CPU float32 "
+        f"{silent_errors['card_vs_cpu']:.3e}, CPU float32 vs float64 {silent_errors['cpu_vs_cpu_f64']:.3e}")
+    if not np.isfinite(silent_out).all() or silent_errors["card_vs_cpu_f64"] > DENOISE_ATOL:
+        raise AssertionError(f"silence-led denoise card vs CPU float64 {silent_errors['card_vs_cpu_f64']:.3e} "
+                             f"> {DENOISE_ATOL:.0e}")
 
     audio_dev = torch.from_numpy(np.pad(clip, (0, bucket - len(clip)))).cuda()
     device_ms = cuda_ms(lambda: denoiser.run(audio_dev), 20, 3)
@@ -2277,7 +2367,8 @@ def main() -> int:
     # directions, on each path
     ragged_bwd_shapes = [
         (path, r, t, h, rev)
-        for path, r, t, h in (("registers", 1001, 13, 64), ("registers", 133, 7, 128), ("general", 301, 9, 40))
+        for path, r, t, h in (("registers", 1001, 13, 64), ("registers", 133, 7, 128), ("cluster", 133, 5, 256),
+                              ("cluster", 19, 3, 512), ("general", 301, 9, 40))
         for rev in (False, True)
     ]
     ragged_bwd = [
@@ -2447,6 +2538,9 @@ def main() -> int:
             entry["general_ms"] = sum(r["general_ms"] for r in mine)
             entry["paths"] = sorted({r["path"] for r in mine + ragged_bwd + theirs})
             entry["ragged_shapes"] = ragged_bwd
+        if name == "gru_dw_partial":
+            entry["simt_ms"] = sum(r["simt_ms"] for r in mine)
+            entry["paths"] = sorted({r["path"] for r in mine + theirs})
         kernels.append(entry)
     log(json.dumps({"train_bf16": {k: v for k, v in bf16_summary.items() if k != "profile"},
                     "quality": {k: v for k, v in quality.items() if k != "runs"},

@@ -2,25 +2,29 @@
 `gru_dw_partial`, `gru_bwd` and `gru_dw_sum` kernels on the card, at the
 shapes the flagship and large16k give them in serving (batch 1, a 4 s clip),
 in evaluation and training at batch 64 of 2 s clips (large16k's training at
-its batch of 16), and (`gru_fwd_train`, `gru_bwd`, `gru_dw_sum`) in training
-at batch 8.
+its batch of 16), and (`gru_fwd_train`, `gru_bwd`, `gru_dw_sum`) the
+flagship's training at batch 8.
 
     python scripts/torch_gru_kernel_profile.py [--only fwd|fwd_train|dw|bwd] [--iters 20]
 
 For every shape and every plan (path and rows per tile for `gru_fwd`,
 `gru_fwd_train` and `gru_bwd`, so every instantiation the libraries build is
-launched; splits for `gru_dw_partial`; words and lanes a block for
+launched; splits, and the SIMT kernel, for `gru_dw_partial`; words and lanes a block for
 `gru_dw_sum`) it prints one JSON line: the error against the plain PyTorch
 version on the same inputs, the errors of both against the plain version in
 float64, the kernel's time by CUDA events and (all but `gru_dw_partial`) its
 device time under torch.profiler, which leaves the host's launch cost out,
 and the time of the PyTorch call that computes the same function
 (torch.nn.GRU and its backward, torch.matmul on operands made beforehand,
-torch.sum). `gru_dw_sum` also says whether two calls gave the same bits.
-The plan that `fwd_plan` / `fwd_train_plan` / `dw_splits` / `bwd_plan` /
+torch.sum; device time, or CUDA events where torch.profiler keeps losing
+the call's records, as chip_smoke.py's `library_device_ms`). `gru_dw_sum`
+also says whether two calls gave the same bits.
+The plan that `fwd_plan` / `fwd_train_plan` / `dw_plan` / `bwd_plan` /
 `sum_plan` choose is marked "chosen". The build log (ptxas registers and spills) comes first.
 Fails if any plan misses chip_smoke.py's tolerance against the plain
-version (KERNEL_ATOL, DW_RTOL) or `gru_dw_sum` differs between two calls.
+version (KERNEL_ATOL, DW_RTOL) or `gru_dw_sum` differs between two calls;
+a tensor-core split longer than `dw_splits` allows (2,048 row-steps) is
+printed with "beyond_split_cap" and not held.
 Needs a CUDA card and nvcc.
 """
 
@@ -36,8 +40,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import (DW_RTOL, KERNEL_ATOL, cuda_ms, device_ms, gru_inputs, max_abs,  # noqa: E402
-                        max_rel, nvidia_smi_line, randn, torch_gru_same_function, torch_gru_train_calls)
+from chip_smoke import (DW_RTOL, KERNEL_ATOL, cuda_ms, device_ms, gru_inputs, library_device_ms,  # noqa: E402
+                        max_abs, max_rel, nvidia_smi_line, randn, torch_gru_same_function,
+                        torch_gru_train_calls)
 from tinyrecurrentunet_torch.ops import build, cuda_gru  # noqa: E402
 from tinyrecurrentunet_torch.ops import gru as gru_ops  # noqa: E402
 
@@ -59,17 +64,15 @@ DW_SHAPES = [
     ("train_fgru_fwd", 16064, 16, 64, False),
     ("train_fgru_rev", 16064, 16, 64, True),
     ("train_tgru", 1024, 251, 128, False),
-]
-# the training shapes, and the same at batch 8 of 2 s clips
-BWD_SHAPES = DW_SHAPES + [
-    ("train8_fgru_fwd", 2008, 16, 64, False),
-    ("train8_tgru", 128, 251, 128, False),
-]
-# and large16k's training shapes at its batch of 16 (the cluster path)
-FWD_TRAIN_SHAPES = BWD_SHAPES + [
+    # large16k's training shapes at its batch of 16 (the cluster paths)
     ("large16k_train_fgru_fwd", 4016, 16, 256, False),
     ("large16k_train_fgru_rev", 4016, 16, 256, True),
     ("large16k_train_tgru", 256, 251, 512, False),
+]
+# the training shapes, and the flagship's at batch 8 of 2 s clips
+BWD_SHAPES = FWD_TRAIN_SHAPES = DW_SHAPES + [
+    ("train8_fgru_fwd", 2008, 16, 64, False),
+    ("train8_tgru", 128, 251, 128, False),
 ]
 
 
@@ -119,7 +122,7 @@ def sweep_fwd_train(iters: int, num_sms: int) -> list[str]:
         want64 = gru_ops.gru_recurrence_train(*(a.double() for a in args), reverse=reverse)
         plain_err64 = max(max_abs(a.double(), b) for a, b in zip(want, want64))
         fwd_lib = torch_gru_train_calls(*args, reverse, want[0], want[1], want[0])[0]
-        library_ms = device_ms(fwd_lib, iters=iters)
+        library_ms = library_device_ms(fwd_lib, iters=iters)[0]
         max_clusters = cuda_gru._max_clusters(device, hidden, save=True)
         chosen = cuda_gru.fwd_train_plan(rows, steps, hidden, num_sms, max_clusters)
         plans = [cuda_gru.FwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))]
@@ -160,15 +163,16 @@ def sweep_dw(iters: int, num_sms: int) -> list[str]:
         library_ms = cuda_ms(lambda: torch.matmul(hp_flat.T, dhp_flat), iters)
         want64 = hp_flat.double().T @ dhp_flat.double()
         n = rows * steps
-        chosen = cuda_gru.dw_splits(n, hidden, num_sms)
+        chosen = cuda_gru.dw_plan(n, hidden, num_sms)
         plans = [chosen]
-        slabs = 3 * hidden // 192
-        for blocks_per_sm in (1, 2, 4):
-            splits = num_sms * blocks_per_sm // slabs
+        tiles = 3 * hidden // 192 * max(1, hidden // 128)
+        for blocks_per_sm in (0.5, 1, 2, 4):
+            splits = max(1, int(num_sms * blocks_per_sm) // tiles)
             per_split = -(-n // (splits * 32)) * 32
-            plan = (-(-n // per_split), per_split)
+            plan = cuda_gru.DwPlan("tensor_cores", -(-n // per_split), per_split)
             if plan not in plans:
                 plans.append(plan)
+        plans.append(cuda_gru.DwPlan("simt", *cuda_gru.dw_splits(n, hidden, num_sms, "simt")))
         for plan in plans:
             def run():
                 return cuda_gru._launch_dw(out, h0, d_xp, saved, reverse, plan=plan)
@@ -177,24 +181,28 @@ def sweep_dw(iters: int, num_sms: int) -> list[str]:
             dwh, dbh = cuda_gru.dw_sum(part, hidden)
             torch.cuda.synchronize()
             err = max(max_rel(dwh, want_dwh), max_rel(dbh, want_dbh))
+            # a longer split than dw_splits allows loses more (~5e-9 of the
+            # largest entry per row-step): printed, not held
+            beyond = plan.path == "tensor_cores" and plan.steps_per_split > cuda_gru._DW_MMA_MAX_STEPS
             print(json.dumps({
                 "kernel": "gru_dw_partial", "shape": name, "rows": rows, "T": steps, "H": hidden,
-                "tensor_cores": cuda_gru.last_dw_plan[0], "splits": plan[0], "per_split": plan[1],
+                **plan._asdict(), "beyond_split_cap": beyond,
                 "chosen": plan == chosen, "max_rel_err": err,
                 "max_rel_err_vs_float64": max_rel(dwh.double(), want64),
                 "plain_rel_err_vs_float64": max_rel(want_dwh.double(), want64),
                 "library_rel_err_vs_float64": max_rel(torch.matmul(hp_flat.T, dhp_flat).double(), want64),
                 "ms": cuda_ms(run, iters), "dw_sum_ms": cuda_ms(lambda: cuda_gru.dw_sum(part, hidden), iters),
                 "library_ms": library_ms}), flush=True)
-            if not err <= DW_RTOL:
+            if not err <= DW_RTOL and not beyond:
                 failures.append(f"gru_dw_partial {name} {plan}: max rel err {err:.3e} > {DW_RTOL:.0e}")
     return failures
 
 
 def sweep_bwd(iters: int, num_sms: int) -> list[str]:
     """Every instantiation of `gru_bwd` (the general kernel at its
-    rows_per_block, the resident one at every rows per tile built), then
-    `gru_dw_sum` over the partials of the same shape at several plans."""
+    rows_per_block, the resident or the cluster one at every rows per tile
+    built), then `gru_dw_sum` over the partials of the same shape at several
+    plans."""
     device = torch.device("cuda")
     failures = []
     for seed, (name, rows, steps, hidden, reverse) in enumerate(BWD_SHAPES):
@@ -206,10 +214,15 @@ def sweep_bwd(iters: int, num_sms: int) -> list[str]:
         want = gru_ops.gru_recurrence_bwd(*bwd_args, reverse=reverse)
         want64 = gru_ops.gru_recurrence_bwd(*(a.double() for a in bwd_args), reverse=reverse)
         plain_err64 = max(max_abs(want[i].double(), want64[i]) for i in (0, 3))
-        library_ms = device_ms(torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, out)[1], iters=iters)
-        chosen = cuda_gru.bwd_plan(rows, steps, hidden, num_sms)
+        library_ms = library_device_ms(torch_gru_train_calls(x_proj, h0, wh, bh, reverse, g, g_hT, out)[1],
+                                       iters=iters)[0]
+        clusters = cuda_gru._bwd_max_clusters(device, hidden) if hidden in cuda_gru._BWD_CLUSTER else None
+        chosen = cuda_gru.bwd_plan(rows, steps, hidden, num_sms, clusters)
         plans = [cuda_gru.BwdPlan("general", cuda_gru.rows_per_block(rows, hidden, num_sms))]
-        plans += [cuda_gru.BwdPlan("registers", r) for r in cuda_gru._BWD_RESIDENT[hidden][1]]
+        if hidden in cuda_gru._BWD_RESIDENT:
+            plans += [cuda_gru.BwdPlan("registers", r) for r in cuda_gru._BWD_RESIDENT[hidden][1]]
+        else:
+            plans += [cuda_gru.BwdPlan("cluster", r) for r in cuda_gru._BWD_CLUSTER[hidden][1]]
         for plan in plans:
             def run():
                 return cuda_gru._launch_bwd(*bwd_args, reverse, plan=plan)
@@ -230,7 +243,7 @@ def sweep_bwd(iters: int, num_sms: int) -> list[str]:
         part = cuda_gru.dw_partial(out, h0, want[0], saved, reverse=reverse)
         splits, size = part.shape
         sum_want, sum_want64 = part.sum(dim=0), part.double().sum(dim=0)
-        library_ms = device_ms(lambda: torch.sum(part, dim=0), iters=iters)
+        library_ms = library_device_ms(lambda: torch.sum(part, dim=0), iters=iters)[0]
         chosen = cuda_gru.sum_plan(splits, size, num_sms)
         plans = [chosen] + [p for p in (cuda_gru.SumPlan(c, threads // c) for threads in (256, 128)
                                         for c in (8, 16, 32, 64, 128) if threads // c <= 32) if p != chosen]

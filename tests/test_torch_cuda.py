@@ -9,9 +9,9 @@ Tolerances, kernel against the plain PyTorch version on the same card:
   a few hundred steps (chip_smoke.py measured <= 3e-7 for gru_fwd);
 - 1e-4 relative to the largest entry, max|a - b| / max|b|, on dWh and dbh:
   sums over rows * T row-steps taken in another order (per split, then over
-  the splits) than the plain version's step-by-step sum, and at H 64 and 128
-  on the tensor cores as TF32 products with bf16 corrections (chip_smoke.py
-  measured <= 1e-5).
+  the splits) than the plain version's step-by-step sum, and at H 64, 128,
+  256 and 512 on the tensor cores as TF32 products with bf16 corrections
+  (chip_smoke.py measured <= 1e-5).
 """
 
 import os
@@ -131,7 +131,7 @@ def _rel(a, b):
     (2008, 16, 64),  # flagship FGRU at batch 8
     (128, 251, 128),  # flagship TGRU at batch 8
     (7, 9, 40),       # H not a multiple of 32 or 64, ragged row tile
-    (133, 5, 256),    # Wh read from global memory
+    (133, 5, 256),    # the cluster BPTT and the tensor cores at a large16k width
     (3, 1, 8),
     (1001, 13, 64),   # tensor cores: rows * T not a multiple of the chunk of 32
     (37, 11, 128),    # the same at H 128, two splits
@@ -160,7 +160,7 @@ def test_training_kernels_match_plain_versions(card, rows, steps, hidden, revers
         "gru_fwd": 0, "gru_fwd_train": 1, "gru_bwd": 1, "gru_dw_partial": 1, "gru_dw_sum": 1}
 
 
-@pytest.mark.parametrize("hidden", [64, 128])
+@pytest.mark.parametrize("hidden", [64, 128, 256, 512])
 def test_tensor_core_reduction_refuses_misaligned_tensors(card, hidden):
     """The tensor-core kernel copies 16 bytes at a time: a tensor off a
     16-byte boundary raises, it does not take another kernel."""
@@ -176,12 +176,13 @@ def test_tensor_core_reduction_refuses_misaligned_tensors(card, hidden):
         cuda_gru.dw_partial(shifted, h0, d_xp, saved)
     assert cuda_gru.dw_partial_launches == before
     cuda_gru.dw_partial(out, h0, d_xp, saved)
-    assert cuda_gru.last_dw_plan[0] is True
+    assert cuda_gru.last_dw_plan.path == "tensor_cores"
 
 
-def test_weight_gradient_is_deterministic(card):
-    x_proj, h0, wh, bh = _inputs(1000, 20, 64, 5, card)
-    g, g_hT = _grads(1000, 20, 64, 5, card)
+@pytest.mark.parametrize("rows,steps,hidden", [(1000, 20, 64), (301, 13, 256), (37, 25, 512)])
+def test_weight_gradient_is_deterministic(card, rows, steps, hidden):
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, 5, card)
+    g, g_hT = _grads(rows, steps, hidden, 5, card)
     out, _, saved = cuda_gru.gru_recurrence_train(x_proj, h0, wh, bh)
     first = cuda_gru.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh)
     second = cuda_gru.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh)
@@ -273,6 +274,26 @@ def test_every_resident_bwd_instantiation(card, hidden, rows_per_tile, reverse):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden,rows_per_tile", [
+    (hidden, r) for hidden, (_, tiles) in cuda_gru._BWD_CLUSTER.items() for r in tiles])
+def test_every_cluster_bwd_instantiation(card, hidden, rows_per_tile, reverse):
+    """Every (H, rows per tile) of the cluster BPTT, on a ragged last tile,
+    T odd, and more tiles than the clusters the card holds, so that clusters
+    walk several tiles."""
+    clusters = cuda_gru._bwd_max_clusters(card, hidden)
+    rows, steps = (clusters + 3) * rows_per_tile + 1, 5
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, hidden + rows_per_tile, card)
+    g, g_hT = _grads(rows, steps, hidden, hidden + rows_per_tile, card)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    d_xp, dh0 = cuda_gru._launch_bwd(g, g_hT, out, saved, h0, wh, reverse,
+                                     plan=cuda_gru.BwdPlan("cluster", rows_per_tile))
+    torch.cuda.synchronize()
+    want = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    torch.testing.assert_close(d_xp, want[0], rtol=0, atol=ATOL)
+    torch.testing.assert_close(dh0, want[3], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("rows,steps,hidden,path", [
     (16064, 16, 64, "registers"),  # flagship training shapes at batch 64
     (1024, 251, 128, "registers"),
@@ -280,6 +301,11 @@ def test_every_resident_bwd_instantiation(card, hidden, rows_per_tile, reverse):
     (133, 7, 128, "registers"),
     (301, 9, 40, "general"),
     (16, 0, 64, "registers"),      # no step: dh0 = g_hT
+    (4016, 16, 256, "cluster"),    # large16k training shapes at batch 16
+    (256, 251, 512, "cluster"),
+    (133, 5, 256, "cluster"),      # ragged rows and T
+    (19, 3, 512, "cluster"),
+    (16, 0, 512, "cluster"),
 ])
 def test_bwd_path_matches_plain_version(card, rows, steps, hidden, path, reverse):
     x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
@@ -629,26 +655,64 @@ def test_use_pallas_gru_routes_by_launch_counts(card, value):
     (13, 9, 512, 2),
 ])
 def test_general_bptt_and_simt_reduction_at_large16k_widths(card, rows, steps, hidden, splits, reverse):
-    """The paths only large16k's training takes: the general `gru_bwd`, the
-    SIMT `gru_dw_partial` and `gru_dw_sum` at H 256 and 512, against the
-    plain versions; the launches by path."""
+    """The kernels large16k's training took before the cluster BPTT and the
+    tensor cores, through forced plans: the general `gru_bwd`, the SIMT
+    `gru_dw_partial` and `gru_dw_sum` at H 256 and 512, against the plain
+    versions; the launches by path."""
     x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
     g, g_hT = _grads(rows, steps, hidden, rows + steps, card)
     out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
     want = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
     cuda_gru.reset_launch_counts()
-    d_xp, dh0 = cuda_gru.bptt(g, g_hT, out, saved, h0, wh, reverse=reverse)
-    plan = None if splits is None else (splits, -(-rows * steps // splits))
+    general = cuda_gru.BwdPlan("general", cuda_gru.rows_per_block(rows, hidden, cuda_gru._num_sms(card)))
+    d_xp, dh0 = cuda_gru._launch_bwd(g, g_hT, out, saved, h0, wh, reverse, plan=general)
+    if splits is None:
+        plan = cuda_gru.DwPlan("simt", *cuda_gru.dw_splits(rows * steps, hidden, cuda_gru._num_sms(card), "simt"))
+    else:
+        plan = cuda_gru.DwPlan("simt", splits, -(-rows * steps // splits))
     part = cuda_gru._launch_dw(out, h0, want[0], saved, reverse, plan=plan)
     dwh, dbh = cuda_gru.dw_sum(part, hidden)
     torch.cuda.synchronize()
-    assert cuda_gru.last_bwd_plan == ("general", cuda_gru.rows_per_block(rows, hidden, cuda_gru._num_sms(card)))
+    assert cuda_gru.last_bwd_plan == general
     assert cuda_gru.launch_paths() == {"gru_bwd": {"general": 1}, "gru_dw_partial": {"simt": 1},
                                        "gru_dw_sum": {"sum": 1}}
     torch.testing.assert_close(d_xp, want[0], rtol=0, atol=ATOL)
     torch.testing.assert_close(dh0, want[3], rtol=0, atol=ATOL)
     assert _rel(dwh, want[1]) <= 1e-4
     assert _rel(dbh, want[2]) <= 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows,steps,hidden", [
+    (4016, 16, 256),  # large16k's FGRU at batch 16
+    (256, 251, 512),  # its TGRU
+    (37, 11, 256),    # ragged: rows not a multiple of the row tile, T odd
+    (13, 9, 512),
+    (1, 1, 256),
+])
+def test_cluster_bptt_and_tensor_core_reduction_at_large16k_widths(card, rows, steps, hidden, reverse):
+    """The paths large16k's training takes: the cluster `gru_bwd` and the
+    tensor-core `gru_dw_partial` (with `gru_dw_sum`) at H 256 and 512,
+    against the plain versions, twice with the same bits; the launches by
+    path."""
+    x_proj, h0, wh, bh = _inputs(rows, steps, hidden, rows + steps, card)
+    g, g_hT = _grads(rows, steps, hidden, rows + steps, card)
+    out, _, saved = gru_ops.gru_recurrence_train(x_proj, h0, wh, bh, reverse=reverse)
+    want = gru_ops.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    cuda_gru.reset_launch_counts()
+    got = cuda_gru.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    torch.cuda.synchronize()
+    assert cuda_gru.last_bwd_plan.path == "cluster" and cuda_gru.last_dw_plan.path == "tensor_cores"
+    assert cuda_gru.launch_paths() == {"gru_bwd": {"cluster": 1}, "gru_dw_partial": {"tensor_cores": 1},
+                                       "gru_dw_sum": {"sum": 1}}
+    d_xp, dwh, dbh, dh0 = got
+    torch.testing.assert_close(d_xp, want[0], rtol=0, atol=ATOL)
+    torch.testing.assert_close(dh0, want[3], rtol=0, atol=ATOL)
+    assert _rel(dwh, want[1]) <= 1e-4
+    assert _rel(dbh, want[2]) <= 1e-4
+    again = cuda_gru.gru_recurrence_bwd(g, g_hT, out, saved, h0, wh, reverse=reverse)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("config,artifact,path", [

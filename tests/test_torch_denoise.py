@@ -64,6 +64,22 @@ def test_flagship_denoise_matches_jax(denoisers):
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
+def _silence_led_clip(seed=3):
+    """0.5 s of digital silence, then 0.5 s of tone and noise: the silent
+    frames' STFT bins are exactly 0."""
+    return np.concatenate([np.zeros(SR // 2), _clip(0.5, seed)])
+
+
+def test_silence_led_clip_matches_jax(denoisers):
+    """Bins that are exactly 0 have phase 0 in both packages (with the
+    phase of torch.fft.rfft's -0.0, pi, the output lay 4.6e-2 from JAX's)."""
+    jax_den, torch_den = denoisers
+    clip = _silence_led_clip()
+    got = torch_den(clip)
+    assert np.isfinite(got).all() and got.shape == clip.shape
+    np.testing.assert_allclose(got, jax_den(clip), rtol=0, atol=ATOL)
+
+
 def test_denoise_odd_length_below_min_bucket(denoisers):
     """777 samples: padded up to the 8-hop minimum bucket, cropped back."""
     jax_den, torch_den = denoisers

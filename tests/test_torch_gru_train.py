@@ -171,43 +171,63 @@ def test_bwd_argument_checks(index, bad, err):
         cuda_gru._check_bwd(*args)
 
 
-@pytest.mark.parametrize("steps,hidden,expect", [
+@pytest.mark.parametrize("steps,hidden,path,expect", [
     # tensor cores (H 64, 128): two blocks an SM over the 192-column slabs, whole chunks
-    (16064 * 16, 64, (260, 992)),    # flagship FGRU at batch 64: 1 slab x 260 splits
-    (1024 * 251, 128, (132, 1952)),  # flagship TGRU at batch 64: 2 slabs x 132 splits
-    (1000, 64, (4, 256)),
-    (100, 64, (1, 128)),             # too few row-steps to split
-    (63, 128, (1, 64)),
-    # the SIMT kernel (any other H): 64 x 64 tiles
-    (100, 8, (1, 100)),
-    (133 * 5, 256, (3, 222)),
-    (16064 * 16, 32, (132, 1948)),   # 2 tiles x 132 splits
-    (1024 * 251, 512, (2, 128512)),  # 192 tiles x 2 splits
+    (16064 * 16, 64, None, (260, 992)),    # flagship FGRU at batch 64: 1 slab x 260 splits
+    (1024 * 251, 128, None, (132, 1952)),  # flagship TGRU at batch 64: 2 slabs x 132 splits
+    (1000, 64, None, (4, 256)),
+    (100, 64, None, (1, 128)),             # too few row-steps to split
+    (63, 128, None, (1, 64)),
+    # tensor cores (H 256, 512): whole waves of one block an SM over the
+    # 128-row x 192-column tiles, at most 2,048 row-steps a split
+    (4016 * 16, 256, None, (33, 1952)),    # large16k FGRU at batch 16: 8 tiles x 33 splits, two waves
+    (256 * 251, 512, None, (33, 1952)),    # large16k TGRU at batch 16: 32 tiles x 33 splits, eight
+    (133 * 5, 256, None, (3, 224)),        # ragged: whole chunks, the last split short
+    (37 * 11, 512, None, (2, 224)),
+    (1024 * 251, 512, None, (126, 2048)),
+    (2008 * 16, 256, None, (16, 2016)),    # one wave of 8 tiles x 16 splits
+    # the SIMT kernel (any other H, and any H when asked for): 64 x 64 tiles
+    (100, 8, None, (1, 100)),
+    (16064 * 16, 32, None, (132, 1948)),   # 2 tiles x 132 splits
+    (133 * 5, 256, "simt", (3, 222)),
+    (1024 * 251, 512, "simt", (2, 128512)),  # 192 tiles x 2 splits
+    (4016 * 16, 256, "simt", (6, 10710)),    # large16k FGRU: 48 tiles x 6 splits
 ])
-def test_dw_splits(steps, hidden, expect):
-    splits, per_split = cuda_gru.dw_splits(steps, hidden, 132)
+def test_dw_splits(steps, hidden, path, expect):
+    splits, per_split = cuda_gru.dw_splits(steps, hidden, 132, path)
     assert (splits, per_split) == expect
+    assert cuda_gru.dw_plan(steps, hidden, 132).path == ("tensor_cores" if hidden in (64, 128, 256, 512) else "simt")
     assert splits * per_split >= steps > (splits - 1) * per_split
 
 
-@pytest.mark.parametrize("rows,steps,hidden,expect", [
+@pytest.mark.parametrize("rows,steps,hidden,max_clusters,expect", [
     # Wh in registers (H 64: four blocks an SM, H 128: one): the fewest rows a
     # tile that keep one wave, at most 2 at H 64 and 4 at H 128
-    (16064, 16, 64, ("registers", 2)),   # flagship FGRU at batch 64: 8,032 tiles
-    (1024, 251, 128, ("registers", 4)),  # flagship TGRU at batch 64: 256 tiles, two waves
-    (2008, 16, 64, ("registers", 2)),    # FGRU at batch 8
-    (500, 16, 64, ("registers", 1)),     # 500 tiles of one row: one wave of 528
-    (128, 251, 128, ("registers", 1)),   # TGRU at batch 8
-    (133, 7, 128, ("registers", 2)),
-    (1001, 13, 64, ("registers", 2)),
-    (1, 1, 64, ("registers", 1)),
+    (16064, 16, 64, None, ("registers", 2)),   # flagship FGRU at batch 64: 8,032 tiles
+    (1024, 251, 128, None, ("registers", 4)),  # flagship TGRU at batch 64: 256 tiles, two waves
+    (2008, 16, 64, None, ("registers", 2)),    # FGRU at batch 8
+    (500, 16, 64, None, ("registers", 1)),     # 500 tiles of one row: one wave of 528
+    (128, 251, 128, None, ("registers", 1)),   # TGRU at batch 8
+    (133, 7, 128, None, ("registers", 2)),
+    (1001, 13, 64, None, ("registers", 2)),
+    (1, 1, 64, None, ("registers", 1)),
+    # clusters (H 256: 8 blocks, H 512: 16): the fewest rows a tile (2, 4, 8)
+    # that keep one wave of the clusters the card holds (30 and 7 on an
+    # H100), else 8
+    (16064, 16, 256, None, ("cluster", 8)),  # large16k FGRU at batch 64
+    (4016, 16, 256, 30, ("cluster", 8)),     # large16k FGRU at batch 16: 502 tiles
+    (256, 251, 512, 7, ("cluster", 8)),      # large16k TGRU at batch 16: 32 tiles
+    (133, 5, 256, 30, ("cluster", 8)),       # ragged: 17 tiles, the last of 5 rows
+    (37, 11, 256, 30, ("cluster", 2)),
+    (19, 3, 512, 7, ("cluster", 4)),         # ragged: 5 tiles, the last of 3 rows
+    (13, 9, 512, None, ("cluster", 2)),      # by default the SMs over the cluster size: 8
     # the general kernel (any other H), rows_per_block
-    (301, 9, 40, ("general", 4)),
-    (16064, 16, 256, ("general", 8)),  # large16k FGRU: H * rows <= 2048
-    (3, 1, 8, ("general", 1)),
+    (301, 9, 40, None, ("general", 4)),
+    (16064, 16, 100, None, ("general", 8)),
+    (3, 1, 8, None, ("general", 1)),
 ])
-def test_bwd_plan(rows, steps, hidden, expect):
-    assert tuple(cuda_gru.bwd_plan(rows, steps, hidden, 132)) == expect
+def test_bwd_plan(rows, steps, hidden, max_clusters, expect):
+    assert tuple(cuda_gru.bwd_plan(rows, steps, hidden, 132, max_clusters)) == expect
 
 
 @pytest.mark.parametrize("rows,steps,hidden,max_clusters,expect", [

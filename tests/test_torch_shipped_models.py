@@ -264,7 +264,7 @@ def _launch_shapes(cfg):
     # (path, rows per tile) of gru_fwd a denoise call; (gru_fwd_train, gru_bwd,
     # tensor cores?) of a training step, on an H100's 132 SMs
     ("large16k", [("cluster", 8), ("cluster", 8), ("cluster", 2)],
-     [(("cluster", 4), ("general", 8), False)] * 2 + [(("cluster", 4), ("general", 2), False)]),
+     [(("cluster", 4), ("cluster", 8), True)] * 2 + [(("cluster", 4), ("cluster", 8), True)]),
     ("proc48k", [("registers", 4), ("registers", 4), ("registers", 1)],
      [(("registers", 8), ("registers", 2), True)] * 2 + [(("registers", 2), ("registers", 2), True)]),
 ], ids=["large16k", "proc48k"])
@@ -273,8 +273,8 @@ def test_launch_plans_of_the_shipped_models(name, serve, train):
     4 s served (large16k 556 x 16 x 256 and 16 x 556 x 512, proc48k 1,602 x
     16 x 64 and 16 x 1,602 x 128) and a training step at batch 16 of 2 s
     (large16k 4,016 x 16 x 256 and 256 x 251 x 512, proc48k 12,016 x 16 x 64
-    and 256 x 751 x 128); large16k's BPTT takes the general kernel at 8 and
-    2 rows a block (H * rows <= 2048) and its weight gradient the SIMT one."""
+    and 256 x 751 x 128); large16k's BPTT takes the cluster kernel at 8 rows
+    a tile and its weight gradient the tensor cores."""
     shapes = _launch_shapes(tconfig.load_config(os.path.join(REPO, "config", f"{name}.json")))
     assert [tuple(cuda_gru.fwd_plan(r, t, h, 132)) for r, t, h in shapes["serve"]] == serve
     got = [(tuple(cuda_gru.fwd_train_plan(r, t, h, 132)), tuple(cuda_gru.bwd_plan(r, t, h, 132)),

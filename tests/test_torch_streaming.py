@@ -293,6 +293,22 @@ def test_flagship_streaming_matches_jax():
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
 
 
+def test_flagship_streaming_of_a_silence_led_clip_matches_jax():
+    """0.5 s of digital silence, then 0.5 s of tone and noise, streamed by
+    the shipped flagship: the silent frames' bins are exactly 0 and take
+    phase 0 in both packages (with the phase of torch.fft.rfft's -0.0, pi,
+    the output lay 5.5e-2 from JAX's)."""
+    jcfg = jload_config(CONFIG)
+    init = JaxTRUNet(jcfg.network).init(jax.random.PRNGKey(0), jnp.zeros((2, 257, 4)))
+    params, stats = load_pretrained_variables(ARTIFACT, init["params"], init["batch_stats"], cfg=jcfg)
+    audio = np.concatenate([np.zeros(SR // 2, np.float32), _audio(SR // 2, seed=3)])
+    want, _ = JStreaming(jcfg, {"params": params, "batch_stats": stats}).process(audio)
+    tcfg = tload_config(CONFIG)
+    got, _ = StreamingDenoiser(tcfg, load_pretrained(ARTIFACT, tcfg), device="cpu").process(audio)
+    assert got.shape == audio.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
+
+
 def _three_streams(samples=4096):
     rng = np.random.default_rng(5)
     return np.stack([_audio(samples), (0.1 * rng.standard_normal(samples)).astype(np.float32),

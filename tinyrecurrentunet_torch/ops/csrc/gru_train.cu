@@ -8,9 +8,11 @@
 //   `_fwd_kernel` -> gru_fwd_train_kernel (path "general", any H), or at H =
 //                    64, 128, 256, 512 the resident kernel of gru_fwd.cu with
 //                    its residuals saved (`trunet_gru_fwd_train_resident`)
-//   `_bwd_kernel` -> gru_bwd_resident_kernel (H = 64, 128) or gru_bwd_kernel
+//   `_bwd_kernel` -> gru_bwd_resident_kernel (H = 64, 128),
+//                    gru_bwd_cluster_kernel (H = 256, 512) or gru_bwd_kernel
 //                    (d_xp, the dh carry, dh0)
-//                    + gru_dw_mma_kernel (H = 64, 128) or gru_dw_partial_kernel
+//                    + gru_dw_mma_kernel (H = 64, 128, 256, 512) or
+//                    gru_dw_partial_kernel
 //                    + gru_dw_sum_kernel (dWh, dbh)
 // The TPU kernel sums dWh and dbh over rows and time in VMEM scratch as its
 // sequential grid walks. Blocks on the card run in parallel, so the sum is a
@@ -43,6 +45,10 @@
 // there are enough rows to fill the card, so the BPTT's bound is its bytes
 // (592 MB, 0.18 ms); at its TGRU (1,024 rows, T 251, H 128) the operations
 // (25 GFLOP of float32 FMAs, 0.39 ms), and the serial chain of 251 steps.
+// large16k's BPTT at batch 16 (FGRU 4,016 x 16 x 256, TGRU 256 x 251 x 512)
+// asks 0.38 and 1.52 ms of float32 FMAs; the TGRU has 256 rows for 132 SMs,
+// so there the serial chain of 251 steps, each a product of a few rows with
+// a 3 MB Wh that no one SM holds, is the real floor.
 //
 // gru_fwd_train_kernel<RPT, WH_SMEM> and gru_bwd_kernel<RPT, WH_SMEM> (path
 // "general" of the forward and of the BPTT, any 1 <= H <= 1024), as the
@@ -79,14 +85,59 @@
 //   KB at H 64, 9.2 / 18 / 37 KB at H 128. Built at 1, 2 and 4 rows a tile;
 //   8 rows spilled 76 bytes at H 64 and ran slower at both H.
 //
+// gru_bwd_cluster_kernel<H, CS, C, KS, R> (path "cluster" of the BPTT, H =
+// 256 and 512, large16k's FGRU and TGRU). Wh is 0.75 MB / 3 MB, too much for
+// one SM, so it stays in the registers of a cluster of CS = 8 / 16 blocks,
+// and the product is cut so that little crosses the cluster:
+// - Block `rank` owns the units U = [rank * H/CS, (rank + 1) * H/CS), 32 at
+//   both sizes: it applies their gate derivatives and so computes their 96
+//   columns of d_hp itself. It holds the columns of Wh those 96 columns
+//   multiply, for all H rows (H x 96 words, the forward's slice), and
+//   computes the partial carries d_hp[:, own columns] @ Wh[:, own
+//   columns]^T for every unit of H: a lane group of KS = 2 lanes owns C = 4
+//   units, lane ks the 48 columns of its parity, 192 words of Wh a lane
+//   (H / C * KS threads: 128 at H 256, 256 at H 512), loaded once; the
+//   block's d_hp row is read from shared memory as float4 words, four units
+//   per load. The two lanes meet by one __shfl_xor_sync, each keeping two
+//   units.
+// - Each partial goes to the block owning its unit, as a float2 into that
+//   block's receive buffer (distributed shared memory,
+//   cluster.map_shared_rank), double-buffered by the step's parity: H words a
+//   row leave a block, not the 3H of d_hp, and as 8-byte stores. One
+//   cluster.sync() a step; the owner of (row, unit) then adds the CS
+//   partials and dh z to get the carry. A first design sent each block's
+//   d_hp columns to every block of the cluster (3 CS scalar stores an
+//   element) and had each block contract the whole row with its units' rows
+//   of Wh: on an H100 it was slower at both of large16k's shapes, its time
+//   a row growing with the cluster size, as its remote stores do.
+// - The gates run once per (row, unit), by a thread of its block (one
+//   element a thread at 8 rows a tile); that thread fetches the next step's
+//   g, r, z, n, hn and h_prev of its elements with 4-byte cp.async copies
+//   into its own slots of shared memory before the product, and writes d_xp
+//   coalesced over the units. One __syncthreads() (the block's d_hp row is
+//   whole) and one cluster.sync() a step.
+// - The clusters stay on the card (the wrapper launches at most as many as
+//   the card holds, `trunet_gru_bwd_max_clusters`, raising on 0) and walk
+//   row tile after row tile; the buffers alternate with a count of the steps
+//   walked, so tiles need no barrier between them.
+// - `nvcc -Xptxas -v` (sm_90a, CUDA 12.8): H 256 (128 threads, two blocks an
+//   SM): 242 / 240 / 251 registers at 2 / 4 / 8 rows a tile; H 512 (256
+//   threads, one block an SM): 253 / 255 / 243; no spill. Built at 16 rows
+//   too, it spilled at H 256 and gained nothing at H 512. Dynamic shared
+//   memory (2 H R + 15 R H / CS) * 4 bytes: 11 / 22 / 44 KB at H 256, 17 /
+//   34 / 68 KB at H 512.
+//
 // The weight-gradient reduction is a product of (H, N) by (N, 3H), N = rows
 // * T, then a sum over its splits, described at their sections below.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -493,6 +544,199 @@ __global__ void __launch_bounds__(H / C * KS, H == 64 ? 4 : 1)
   }
 }
 
+// ---- the BPTT with Wh resident across a thread-block cluster (H = 256, 512)
+
+template <int H, int CS, int R>
+constexpr size_t bwd_cluster_smem_bytes() {
+  // partial carries received [2][CS][R][H / CS] + the block's d_hp columns
+  // [R][3H / CS] + the step inputs of its units [2][6][R][H / CS]
+  return (size_t)(2 * CS * R * (H / CS) + R * 3 * (H / CS) + 2 * 6 * R * (H / CS)) * sizeof(float);
+}
+
+// grid: CS * (the clusters the wrapper asks for, at most the row tiles);
+// cluster c walks the tiles c, c + clusters, ... (Wh is loaded once).
+template <int H, int CS, int C, int KS, int R>
+__global__ void __launch_bounds__(H / C * KS, 1)
+    gru_bwd_cluster_kernel(const float* __restrict__ g, const float* __restrict__ g_hT,
+                           const float* __restrict__ out, const float* __restrict__ saved,
+                           const float* __restrict__ h0, const float* __restrict__ wh,
+                           float* __restrict__ d_xp, float* __restrict__ dh0, int rows, int T,
+                           int reverse) {
+  constexpr int G = 3 * H;
+  constexpr int HS = H / CS;           // output units of this block
+  constexpr int LC = 3 * HS;           // its d_hp columns
+  constexpr int NT = H / C * KS;       // threads: KS lanes for every C units of H
+  constexpr int KI = LC / (4 * KS);    // float4 words of the block's d_hp row a lane reads
+  constexpr int ELEMS = R * HS;        // (row, unit) elements of the block
+  constexpr int GE = (ELEMS + NT - 1) / NT;  // elements a thread owns
+  constexpr int IN = 6 * R * HS;       // one stage of step inputs
+  static_assert(KS == 2 && C % 4 == 0 && LC % (4 * KS) == 0 && HS % C == 0 && NT % 32 == 0,
+                "shape");
+  extern __shared__ __align__(16) float csm[];
+  float* recv = csm;                       // [2][CS][R][HS] partial carries, from each block
+  float* dloc = recv + 2 * CS * R * HS;    // [R][LC] the block's d_hp columns of the step
+  float* inb = dloc + R * LC;              // [2][6][R][HS] g, r, z, n, hn, h_prev of its units
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int ks = tid % KS;
+  const int k0 = (tid / KS) * C;          // first unit of H of the lane group
+  const int kk = k0 + ks * (C / KS);      // first of the C / KS units this lane holds after the reduction
+  const int dst = kk / HS;                // the block that owns them
+
+  // w[c][4 i + q] = Wh[k0 + c, column of local column 4 (i * KS + ks) + q]:
+  // local column lc = gate * HS + unit is column gate * H + rank * HS + unit
+  float w[C][4 * KI];
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lc = 4 * (i * KS + ks) + q;
+      const int col = (lc / HS) * H + rank * HS + lc % HS;
+#pragma unroll
+      for (int c = 0; c < C; ++c) w[c][4 * i + q] = wh[(size_t)(k0 + c) * G + col];
+    }
+  }
+
+  const int tiles = (rows + R - 1) / R;
+  const int clusters = gridDim.x / CS;
+  int q = 0;        // steps walked by this block: the parity of the receive buffer
+  cluster.sync();   // every block of the cluster runs before any writes into it
+  for (int tile = blockIdx.x / CS; tile < tiles; tile += clusters) {
+    const int row0 = tile * R;
+    // the inputs of step s of this thread's elements into stage s & 1
+    const auto fetch = [&](int s) {
+      const int t = reverse ? s : T - 1 - s;
+      const int tp = reverse ? t + 1 : t - 1;  // the step the forward walked before t
+      float* st = inb + (s & 1) * IN;
+#pragma unroll
+      for (int it = 0; it < GE; ++it) {
+        const int e = tid + it * NT;
+        const int r = e / HS;
+        if (e >= ELEMS || row0 + r >= rows) continue;
+        const int u = rank * HS + e % HS;
+        const size_t rt = (size_t)(row0 + r) * T + t;
+        const float* sv = saved + rt * 4 * H;
+        float* d = st + e;
+        cp_async4(d, g + rt * H + u);
+        cp_async4(d + ELEMS, sv + u);
+        cp_async4(d + 2 * ELEMS, sv + H + u);
+        cp_async4(d + 3 * ELEMS, sv + 2 * H + u);
+        cp_async4(d + 4 * ELEMS, sv + 3 * H + u);
+        cp_async4(d + 5 * ELEMS, (tp < 0 || tp >= T) ? h0 + (size_t)(row0 + r) * H + u
+                                                     : out + ((size_t)(row0 + r) * T + tp) * H + u);
+      }
+      cp_async_commit();
+    };
+    // carry of element e after step q - 1: dh z kept from its gates plus the
+    // partial products every block sent for it
+    const auto received = [&](int e, float dhz) {
+      const float* p = recv + ((q - 1) & 1) * CS * ELEMS + e;
+      float a = 0.0f, b = 0.0f;
+#pragma unroll
+      for (int src = 0; src < CS; src += 2) {
+        a += p[src * ELEMS];
+        b += p[(src + 1) * ELEMS];
+      }
+      return dhz + (a + b);
+    };
+
+    float dhz[GE];
+#pragma unroll
+    for (int it = 0; it < GE; ++it) {
+      const int e = tid + it * NT;
+      const int r = e / HS;
+      dhz[it] = (e < ELEMS && row0 + r < rows) ? g_hT[(size_t)(row0 + r) * H + rank * HS + e % HS] : 0.0f;
+    }
+    if (T > 0) fetch(0);
+
+    for (int s = 0; s < T; ++s, ++q) {
+      const int t = reverse ? s : T - 1 - s;
+      const float* st = inb + (s & 1) * IN;
+      cp_async_wait_all();  // this thread's inputs of step s have landed
+      // each element's gates, once; its d_hp words into the block's row
+#pragma unroll
+      for (int it = 0; it < GE; ++it) {
+        const int e = tid + it * NT;
+        if (e >= ELEMS) continue;
+        const int r = e / HS, ul = e % HS;
+        const bool valid = row0 + r < rows;
+        const float carry = s == 0 ? dhz[it] : received(e, dhz[it]);
+        const float* in = st + e;
+        const float gg = valid ? in[0] : 0.0f;
+        const float rg = valid ? in[ELEMS] : 0.0f;
+        const float zg = valid ? in[2 * ELEMS] : 0.0f;
+        const float ng = valid ? in[3 * ELEMS] : 0.0f;
+        const float hn = valid ? in[4 * ELEMS] : 0.0f;
+        const float hp = valid ? in[5 * ELEMS] : 0.0f;
+        const float dh = carry + gg;
+        const float dz = dh * (hp - ng) * zg * (1.0f - zg);
+        const float dn = dh * (1.0f - zg) * (1.0f - ng * ng);
+        const float dr = dn * hn * rg * (1.0f - rg);
+        float* dl = dloc + r * LC + ul;
+        dl[0] = dr;
+        dl[HS] = dz;
+        dl[2 * HS] = dn * rg;
+        if (valid) {
+          float* dx = d_xp + ((size_t)(row0 + r) * T + t) * G + rank * HS + ul;
+          dx[0] = dr;
+          dx[H] = dz;
+          dx[2 * H] = dn;
+        }
+        dhz[it] = dh * zg;
+      }
+      if (s + 1 < T) fetch(s + 1);  // lands while the product runs
+      __syncthreads();              // the block's d_hp columns are whole
+
+      // partial carries d_hp[:, own columns] @ Wh[:, own columns]^T for every
+      // unit of H, each sent to the block that owns the unit
+      float* peer = cluster.map_shared_rank(recv, dst) + (q & 1) * CS * ELEMS + rank * ELEMS + kk % HS;
+      const float4* d4 = reinterpret_cast<const float4*>(dloc);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float acc[C], acc2[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = acc2[c] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          const float4 v = d4[r * (LC / 4) + i * KS + ks];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            acc[c] = fmaf(v.x, w[c][4 * i + 0], acc[c]);
+            acc2[c] = fmaf(v.y, w[c][4 * i + 1], acc2[c]);
+            acc[c] = fmaf(v.z, w[c][4 * i + 2], acc[c]);
+            acc2[c] = fmaf(v.w, w[c][4 * i + 3], acc2[c]);
+          }
+        }
+        // the two lanes of a group meet: lane ks keeps units kk, kk + 1, ...
+        float part[C / KS];
+#pragma unroll
+        for (int j = 0; j < C / KS; ++j) {
+          const float lo = acc[j] + acc2[j], hi = acc[j + C / KS] + acc2[j + C / KS];
+          const float send = ks ? lo : hi;
+          part[j] = (ks ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, 1);
+        }
+#pragma unroll
+        for (int j = 0; j < C / KS; j += 2)
+          *reinterpret_cast<float2*>(peer + r * HS + j) = make_float2(part[j], part[j + 1]);
+      }
+      cluster.sync();  // every block has its partial carries of the step
+    }
+
+#pragma unroll
+    for (int it = 0; it < GE; ++it) {
+      const int e = tid + it * NT;
+      const int r = e / HS;
+      if (e < ELEMS && row0 + r < rows)
+        dh0[(size_t)(row0 + r) * H + rank * HS + e % HS] = T > 0 ? received(e, dhz[it]) : dhz[it];
+    }
+  }
+  // the receive buffers alternate with q, so tiles need no barrier between
+  // them; after the last step's cluster.sync() no block writes into another,
+  // so a block may exit once it has read its own
+}
+
 // ------------------------------------------------- weight-gradient reduction
 //
 // Replaces the dWh / dbh accumulation of the TPU kernel `_bwd_kernel`
@@ -511,14 +755,28 @@ __global__ void __launch_bounds__(H / C * KS, H == 64 ? 4 : 1)
 // product cannot reach the memory time at H = 128 and barely at H = 64. The
 // product therefore runs on the tensor cores, where its four instructions
 // per tile (two TF32 at 495 TFLOP/s, two bf16 at 989) ask 0.03 and 0.10 ms:
-// the floor of this kernel is the bytes, 0.10 and 0.20 ms.
+// the floor of this kernel is the bytes, 0.10 and 0.20 ms. At large16k's
+// training shapes (N = 64,256 row-steps) it is 25 GFLOP over 330 MB (H = 256)
+// and 101 GFLOP over 660 MB (H = 512): on the tensor cores 0.10 and 0.41 ms,
+// above their bytes (0.10 and 0.20 ms), so there the operations bound it.
 //
-// gru_dw_mma_kernel<H, CH, STAGES> (H = 64, 128; 16-byte aligned tensors).
-// - One block of 8 warps owns all H rows of dWh and a slab of 192 columns
-//   (all of 3H at H = 64, half at H = 128) for its split, so d_xp and r are
-//   read from device memory once and h_prev once per slab. grid (3H / 192,
-//   splits); an SM holds two blocks at H = 64 (88 KB of shared memory each)
-//   and one at H = 128 (181 KB, 96 accumulators a thread).
+// gru_dw_mma_kernel<H, STAGES> (H = 64, 128, 256, 512; 16-byte aligned
+// tensors).
+// - One block of 8 warps owns up to 128 rows of dWh (all H at H = 64 and
+//   128, one of H / 128 row tiles at 256 and 512) and a slab of 192 columns
+//   (all of 3H at H = 64, half at H = 128, a quarter / an eighth at 256 /
+//   512) for its split. So d_xp and r are read once per row tile (once at H
+//   <= 128, 2 / 4 times at 256 / 512) and h_prev once per slab (1, 2, 4, 8
+//   times); only the words of r that the slab's n-third columns multiply
+//   are staged. grid ((3H / 192) * max(1, H / 128), splits); an SM holds two
+//   blocks at H = 64 (88 KB of shared memory each) and one at H >= 128 (181
+//   KB at 128, 206 KB at 256 and 512; 96 accumulators a thread). At 256 and
+//   512 the blocks of a slab could share one TMA multicast of the d_xp
+//   chunk across a cluster; the product is not bound by those reads (at
+//   4,016 x 16 x 256, 16 splits of 128 blocks took 0.425-0.429 ms and 8
+//   splits of 64 blocks 0.828-0.834, scripts/torch_gru_kernel_profile.py:
+//   the time follows the SMs at work, not the bytes), so the copies stay
+//   one per block.
 // - A ring of staged chunks of 32 row-steps (2 at H = 64, 3 at H = 128),
 //   filled by the TMA unit: one bulk copy (cp.async.bulk) per staged row of
 //   h_prev, d_xp and r, started by 96 threads right after the barrier that
@@ -552,7 +810,12 @@ __global__ void __launch_bounds__(H / C * KS, H == 64 ? 4 : 1)
 // - Deterministic: a fixed split of N (`dw_splits`), no atomics.
 // - `nvcc -Xptxas -v` (sm_90a, CUDA 12.8): H = 64: 128 registers (the cap of
 //   two blocks an SM; 56 bytes spilled), 88,064 bytes of dynamic shared
-//   memory; H = 128: 255 registers, no spill, 181,248 bytes.
+//   memory; H = 128: 255 registers, no spill, 181,248 bytes; H = 256 and
+//   512: 255 registers, no spill, 205,824 bytes. The row-tile offsets are
+//   constants at H <= 128 (`if constexpr`), and the staging keeps the count
+//   of r's words a constant there: computed at run time, they made the H =
+//   64 and 128 builds spill more and run slower. As constants, both build
+//   and run as before the row tiles (scripts/torch_dw_partial_compare.py).
 //
 // gru_dw_partial_kernel (every other H): the float32 SIMT product of 64 x 64
 // output tiles, 4 x 4 outputs a thread, 16 row-steps staged at a time.
@@ -666,8 +929,15 @@ constexpr int MMA_BP = MMA_BN + 8;
 constexpr int MMA_CH = 32;        // row-steps per staged chunk
 constexpr int MMA_THREADS = 256;  // 8 warps: 2 over the rows of dWh, 4 over the columns
 
+constexpr int MMA_KT = 128;       // most rows of dWh per block
+
+// rows of dWh a block owns; the padded row of staged h_prev and of staged r
+__host__ __device__ constexpr int dw_mma_kt(int H) { return H < MMA_KT ? H : MMA_KT; }
+__host__ __device__ constexpr int dw_mma_ap(int H) { return dw_mma_kt(H) + 8; }
+__host__ __device__ constexpr int dw_mma_rp(int H) { return (H < MMA_BN ? H : MMA_BN) + 8; }
+
 constexpr size_t dw_mma_smem_bytes(int H, int STAGES) {
-  return (size_t)STAGES * MMA_CH * ((H + 8) + MMA_BP + (H + 8)) * sizeof(float);
+  return (size_t)STAGES * MMA_CH * (dw_mma_ap(H) + MMA_BP + dw_mma_rp(H)) * sizeof(float);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -745,12 +1015,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Stages one chunk of MMA_CH row-steps starting at n0: h_prev rows into as
-// [MMA_CH][H + 8], the slab of d_xp into bs [MMA_CH][MMA_BP] and, when the
-// slab reaches the n third, r into rs [MMA_CH][H + 8]. One bulk copy per
-// staged row, started by the first 3 * MMA_CH threads; thread 0 tells the
-// stage's mbarrier how many bytes to expect. Rows past the split's end are
-// zeroed by hand.
+// Stages one chunk of MMA_CH row-steps starting at n0: the block's KT
+// columns k0.. of the h_prev rows into as [MMA_CH][KT + 8], the slab of d_xp
+// into bs [MMA_CH][MMA_BP] and, when the slab reaches the n third (need_r),
+// the words of r from r0 that it multiplies into rs [MMA_CH][RP]. One bulk copy
+// per staged row, started by the first 3 * MMA_CH threads; thread 0 tells
+// the stage's mbarrier how many bytes to expect. Rows past the split's end
+// are zeroed by hand.
 template <int H>
 __device__ __forceinline__ void dw_stage_chunk(float* as, float* bs, float* rs,
                                                unsigned long long* bar,
@@ -758,19 +1029,21 @@ __device__ __forceinline__ void dw_stage_chunk(float* as, float* bs, float* rs,
                                                const float* __restrict__ h0,
                                                const float* __restrict__ d_xp,
                                                const float* __restrict__ saved, int n0,
-                                               int n_end, int T, int reverse, int c0,
-                                               bool need_r, int tid) {
-  constexpr int G = 3 * H, AP = H + 8;
+                                               int n_end, int T, int reverse, int k0, int c0,
+                                               int r0, bool need_r, int tid) {
+  constexpr int G = 3 * H, KT = dw_mma_kt(H), AP = dw_mma_ap(H), RP = dw_mma_rp(H);
+  // the words of r when need_r: all of r at H <= KT (a constant)
+  const int r_n = H <= KT ? H : c0 + MMA_BN - 2 * H - r0;
   const int valid = n_end - n0 < MMA_CH ? n_end - n0 : MMA_CH;
-  const unsigned row_bytes = (unsigned)((H + MMA_BN + (need_r ? H : 0)) * sizeof(float));
+  const unsigned row_bytes = (unsigned)((KT + MMA_BN + (need_r ? r_n : 0)) * sizeof(float));
   if (tid == 0) mbar_arrive_expect_tx(bar, (unsigned)valid * row_bytes);
   if (tid >= 3 * MMA_CH) return;
   const int kind = tid / MMA_CH;  // 0: h_prev, 1: d_xp, 2: r
   const int nn = tid - kind * MMA_CH;
   if (kind == 2 && !need_r) return;
   const int n = n0 + nn;
-  float* dst = kind == 0 ? as + nn * AP : kind == 1 ? bs + nn * MMA_BP : rs + nn * AP;
-  const int words = kind == 1 ? MMA_BN : H;
+  float* dst = kind == 0 ? as + nn * AP : kind == 1 ? bs + nn * MMA_BP : rs + nn * RP;
+  const int words = kind == 0 ? KT : kind == 1 ? MMA_BN : r_n;
   if (n >= n_end) {
     for (int i = 0; i < words; ++i) dst[i] = 0.0f;
     return;
@@ -780,25 +1053,26 @@ __device__ __forceinline__ void dw_stage_chunk(float* as, float* bs, float* rs,
     const int row = n / T;
     const int t = n - row * T;
     const int tp = reverse ? t + 1 : t - 1;  // the step the forward walked before t
-    src = (tp < 0 || tp >= T) ? h0 + (size_t)row * H : out + ((size_t)row * T + tp) * H;
+    src = ((tp < 0 || tp >= T) ? h0 + (size_t)row * H : out + ((size_t)row * T + tp) * H) + k0;
   } else if (kind == 1) {
     src = d_xp + (size_t)n * G + c0;
   } else {
-    src = saved + (size_t)n * 4 * H;
+    src = saved + (size_t)n * 4 * H + r0;
   }
   bulk_copy(dst, src, (unsigned)(words * sizeof(float)), bar);
 }
 
-// grid (3H / MMA_BN, splits); dynamic shared memory dw_mma_smem_bytes(H, STAGES).
+// grid ((3H / MMA_BN) * (H / KT), splits): blockIdx.x = slab * (H / KT) +
+// k-tile; dynamic shared memory dw_mma_smem_bytes(H, STAGES).
 template <int H, int STAGES>
 __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
     gru_dw_mma_kernel(const float* __restrict__ out, const float* __restrict__ h0,
                       const float* __restrict__ d_xp, const float* __restrict__ saved,
                       float* __restrict__ part, int rows, int T, int reverse, int n_per_split) {
-  constexpr int G = 3 * H, AP = H + 8;
-  constexpr int MT = H / 32;  // 16-row tiles of a warp: H / 2 rows
-  constexpr int NTL = 6;      // 8-column tiles of a warp: 48 columns
-  constexpr int STAGE = MMA_CH * (AP + MMA_BP + AP);
+  constexpr int G = 3 * H, KT = dw_mma_kt(H), AP = dw_mma_ap(H), RP = dw_mma_rp(H);
+  constexpr int MT = KT / 32;  // 16-row tiles of a warp: KT / 2 rows
+  constexpr int NTL = 6;       // 8-column tiles of a warp: 48 columns
+  constexpr int STAGE = MMA_CH * (AP + MMA_BP + RP);
   static_assert(3 * MMA_CH <= MMA_THREADS && MMA_CH % 16 == 0, "one thread per staged row");
   extern __shared__ __align__(16) float dw_smem[];
   __shared__ unsigned long long full[STAGES];  // one mbarrier per stage
@@ -807,13 +1081,22 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
-  const int c0 = blockIdx.x * MMA_BN;
+  // the block's row tile kt (rows k0..) and slab (columns c0..); the slab's
+  // n-third columns multiply the words of r from r0. At H <= KT there is
+  // one row tile and r0 is 0: constants, so that no register holds them
+  int kt = 0, k0 = 0, c0 = blockIdx.x * MMA_BN, r0 = 0;
+  if constexpr (H > KT) {
+    kt = blockIdx.x % (H / KT);
+    k0 = kt * KT;
+    c0 = blockIdx.x / (H / KT) * MMA_BN;
+    r0 = c0 > 2 * H ? c0 - 2 * H : 0;
+  }
+  const bool need_r = c0 + MMA_BN > 2 * H;
   const long long N = (long long)rows * T;
   const long long nb = (long long)blockIdx.y * n_per_split;
   const int n_begin = (int)(nb < N ? nb : N);
   const int n_end = (int)(nb + n_per_split < N ? nb + n_per_split : N);
   const int nchunks = (n_end - n_begin + MMA_CH - 1) / MMA_CH;
-  const bool need_r = c0 + MMA_BN > 2 * H;
 
   bool n_third[NTL];  // the tile's columns lie in the n third: d_hp = d_xp * r
 #pragma unroll
@@ -841,7 +1124,7 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
     const int s = chunk % STAGES;
     float* st = dw_smem + s * STAGE;
     dw_stage_chunk<H>(st, st + MMA_CH * AP, st + MMA_CH * (AP + MMA_BP), &full[s], out, h0, d_xp,
-                      saved, n_begin + chunk * MMA_CH, n_end, T, reverse, c0, need_r, tid);
+                      saved, n_begin + chunk * MMA_CH, n_end, T, reverse, k0, c0, r0, need_r, tid);
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -866,10 +1149,10 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           b[q] = bs[(k16 + t4 + 4 * q) * MMA_BP + col];
-          if (n_third[nt]) b[q] *= rs[(k16 + t4 + 4 * q) * AP + c0 + col - 2 * H];
+          if (n_third[nt]) b[q] *= rs[(k16 + t4 + 4 * q) * RP + c0 + col - 2 * H - r0];
           split_tf32(b[q], bh[nt][q], lo[q]);
         }
-        if (wm == 0) bsum[nt] += (b[0] + b[1]) + (b[2] + b[3]);
+        if (wm == 0 && kt == 0) bsum[nt] += (b[0] + b[1]) + (b[2] + b[3]);  // dbh
         bp[nt][0] = pack_bf16(b[0], b[1]);
         bp[nt][1] = pack_bf16(b[2], b[3]);
         blp[nt][0] = pack_bf16(lo[0], lo[1]);
@@ -877,7 +1160,7 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const int row = wm * (H / 2) + mt * 16 + g;
+        const int row = wm * (KT / 2) + mt * 16 + g;
         // a[q][v]: row-step q, dWh row `row + 8 v`
         float a[4][2], lo[4][2];
         unsigned ah[4][2];
@@ -911,7 +1194,7 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
   float* p = part + (size_t)blockIdx.y * ((size_t)H * G + G);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const int row = wm * (H / 2) + mt * 16 + g;
+    const int row = k0 + wm * (KT / 2) + mt * 16 + g;
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt) {
       const int col = c0 + wn * 48 + nt * 8 + 2 * t4;
@@ -921,7 +1204,7 @@ __global__ void __launch_bounds__(MMA_THREADS, H == 64 ? 2 : 1)
           make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   }
-  if (wm == 0) {
+  if (wm == 0 && kt == 0) {
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt) {
       float v = bsum[nt];
@@ -1136,6 +1419,72 @@ cudaError_t dispatch_bwd_resident(int rows_per_tile, const BwdArgs& a, cudaStrea
   return cudaErrorInvalidValue;
 }
 
+// The launch of the cluster BPTT: `clusters` clusters of CS blocks. `attr`
+// must outlive `cfg`.
+template <int H, int CS, int C, int KS, int R>
+void bwd_cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int clusters,
+                        cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters * CS);
+  cfg.blockDim = dim3(H / C * KS);
+  cfg.dynamicSmemBytes = bwd_cluster_smem_bytes<H, CS, R>();
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// Allows the kernel its shared memory and (above the portable 8) its cluster
+// size on the current device, and reports the clusters the device holds at once.
+template <int H, int CS, int C, int KS, int R>
+cudaError_t bwd_cluster_prepare(int* clusters) {
+  auto kernel = gru_bwd_cluster_kernel<H, CS, C, KS, R>;
+  cudaError_t err = allow_smem(kernel, bwd_cluster_smem_bytes<H, CS, R>());
+  if (err != cudaSuccess) return err;
+  if (CS > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  bwd_cluster_config<H, CS, C, KS, R>(cfg, attr, 64, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// A cluster that the card cannot hold, or a size that
+// trunet_gru_bwd_max_clusters has not allowed on this device, is an error of
+// the launch, not a change of path.
+template <int H, int CS, int C, int KS, int R>
+cudaError_t launch_bwd_cluster(const BwdArgs& a, int clusters, cudaStream_t stream) {
+  const int tiles = (a.rows + R - 1) / R;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  bwd_cluster_config<H, CS, C, KS, R>(cfg, attr, clusters < tiles ? clusters : tiles, stream);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<H, CS, C, KS, R>, a.g, a.g_hT,
+                                       a.out, a.saved, a.h0, a.wh, a.d_xp, a.dh0, a.rows, a.T,
+                                       a.reverse);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The instantiations of the cluster BPTT, (H, blocks of a cluster, units and
+// lanes of a lane group, rows per tile). Lists `_BWD_CLUSTER` of cuda_gru.py.
+#define TRUNET_BWD_CLUSTERS(X)                                                          \
+  X(256, 8, 4, 2, 2) X(256, 8, 4, 2, 4) X(256, 8, 4, 2, 8)                              \
+  X(512, 16, 4, 2, 2) X(512, 16, 4, 2, 4) X(512, 16, 4, 2, 8)
+
+cudaError_t dispatch_bwd_cluster(int rows_per_tile, int clusters, const BwdArgs& a,
+                                 cudaStream_t stream) {
+#define TRUNET_BWD_CLUSTER_LAUNCH(HH, CS, C, KS, RR) \
+  if (a.H == HH && rows_per_tile == RR) return launch_bwd_cluster<HH, CS, C, KS, RR>(a, clusters, stream);
+  TRUNET_BWD_CLUSTERS(TRUNET_BWD_CLUSTER_LAUNCH)
+#undef TRUNET_BWD_CLUSTER_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 template <int H, int STAGES>
 cudaError_t launch_dw_mma(dim3 grid, const float* out, const float* h0, const float* d_xp,
                           const float* saved, float* part, int rows, int T, int reverse,
@@ -1198,14 +1547,49 @@ int trunet_gru_bwd(const void* g, const void* g_hT, const void* out, const void*
   return (int)dispatch_bwd<false>(rows_per_block, a, s);
 }
 
+// The BPTT on the cluster path (H = 256, 512): `clusters` clusters walk the
+// row tiles of rows_per_tile rows (at most one cluster a tile), for the (H,
+// rows_per_tile) that TRUNET_BWD_CLUSTERS lists, after
+// trunet_gru_bwd_max_clusters(H) on this device.
+int trunet_gru_bwd_cluster(const void* g, const void* g_hT, const void* out, const void* saved,
+                           const void* h0, const void* wh, void* d_xp, void* dh0, int rows, int T,
+                           int H, int reverse, int rows_per_tile, int clusters, void* stream) {
+  if (rows < 1 || T < 0 || clusters < 1) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{static_cast<const float*>(g),     static_cast<const float*>(g_hT),
+                  static_cast<const float*>(out),   static_cast<const float*>(saved),
+                  static_cast<const float*>(h0),    static_cast<const float*>(wh),
+                  static_cast<float*>(d_xp),        static_cast<float*>(dh0),
+                  rows, T, H, reverse};
+  return (int)dispatch_bwd_cluster(rows_per_tile, clusters, a, static_cast<cudaStream_t>(stream));
+}
+
+// To be called once per device before the cluster BPTT at H is launched
+// there: allows every instantiation of H its shared memory and cluster size
+// and returns the fewest clusters of one the device holds at once (0: none
+// can be scheduled); -cudaError_t on failure.
+int trunet_gru_bwd_max_clusters(int H) {
+  int fewest = 1 << 30;
+  cudaError_t err = cudaErrorInvalidValue;
+#define TRUNET_BWD_CLUSTER_PREPARE(HH, CS, C, KS, RR)                       \
+  if (H == HH) {                                                            \
+    int clusters = 0;                                                       \
+    err = bwd_cluster_prepare<HH, CS, C, KS, RR>(&clusters);                \
+    if (err != cudaSuccess) return -(int)err;                               \
+    if (clusters < fewest) fewest = clusters;                               \
+  }
+  TRUNET_BWD_CLUSTERS(TRUNET_BWD_CLUSTER_PREPARE)
+#undef TRUNET_BWD_CLUSTER_PREPARE
+  return err == cudaSuccess ? fewest : -(int)err;
+}
+
 // Per-split partial sums of dWh and dbh into part (splits, H*3H + 3H);
-// splits * n_per_split must cover rows * T. H = 64 and 128 run the
-// tensor-core kernel, which needs every tensor aligned to 16 bytes and
-// rows * T < 2^31 (anything else is refused); any other H the float32 SIMT
-// kernel.
+// splits * n_per_split must cover rows * T. tensor_cores 1: the tensor-core
+// kernel, built for H = 64, 128, 256 and 512, which needs every tensor
+// aligned to 16 bytes and rows * T < 2^31 (anything else is refused);
+// tensor_cores 0: the float32 SIMT kernel, any H.
 int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, const void* saved,
                           void* part, int rows, int T, int H, int reverse, int splits,
-                          int n_per_split, void* stream) {
+                          int n_per_split, int tensor_cores, void* stream) {
   if (rows < 1 || T < 1 || H < 1 || splits < 1 || n_per_split < 1 ||
       (long long)splits * n_per_split < (long long)rows * T)
     return (int)cudaErrorInvalidValue;
@@ -1215,17 +1599,27 @@ int trunet_gru_dw_partial(const void* out, const void* h0, const void* d_xp, con
   const float* svf = static_cast<const float*>(saved);
   float* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H == 64 || H == 128) {
+  if (tensor_cores) {
+    if (H != 64 && H != 128 && H != 256 && H != 512) return (int)cudaErrorInvalidValue;
     const auto misaligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 != 0; };
     if (splits > 65535 || (long long)rows * T >= (1LL << 31) || misaligned(out) ||
         misaligned(h0) || misaligned(d_xp) || misaligned(saved) || misaligned(part))
       return (int)cudaErrorInvalidValue;
-    const dim3 grid(3 * H / MMA_BN, splits);
-    if (H == 64)
-      return (int)launch_dw_mma<64, 2>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
-                                       n_per_split, s);
-    return (int)launch_dw_mma<128, 3>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
-                                      n_per_split, s);
+    const dim3 grid(3 * H / MMA_BN * (H > MMA_KT ? H / MMA_KT : 1), splits);
+    switch (H) {
+      case 64:
+        return (int)launch_dw_mma<64, 2>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
+                                         n_per_split, s);
+      case 128:
+        return (int)launch_dw_mma<128, 3>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
+                                          n_per_split, s);
+      case 256:
+        return (int)launch_dw_mma<256, 3>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
+                                          n_per_split, s);
+      default:
+        return (int)launch_dw_mma<512, 3>(grid, outf, h0f, dxf, svf, pf, rows, T, reverse,
+                                          n_per_split, s);
+    }
   }
   const dim3 grid((H + DW_TILE - 1) / DW_TILE, (3 * H + DW_TILE - 1) / DW_TILE, splits);
   gru_dw_partial_kernel<<<grid, DW_THREADS, 0, s>>>(outf, h0f, dxf, svf, pf, rows, T, H, reverse,

@@ -17,13 +17,14 @@ bh (3H,); outputs (rows, T, H).
 - `gru_recurrence_bwd`: the BPTT, (d_xp, dWh, dbh, dh0). On a card it runs
   `bptt` (kernel `gru_bwd`: d_xp, dh0), then `dw_partial` and `dw_sum`
   (kernels `gru_dw_partial` and `gru_dw_sum`: dWh, dbh); these three take
-  CUDA tensors only. `gru_bwd` runs on one of two paths chosen by
+  CUDA tensors only. `gru_bwd` runs on one of three paths chosen by
   `bwd_plan`: Wh resident in registers (H 64, 128: the flagship's FGRU and
-  TGRU) or the general kernel (any other H up to 1024). `gru_dw_partial`
-  runs on the tensor cores at H 64 and 128 (TF32 with bf16 corrections:
+  TGRU), the same across a thread block cluster (H 256, 512: large16k's), or
+  the general kernel (any other H up to 1024). `gru_dw_partial` runs on the
+  tensor cores at H 64, 128, 256 and 512 (TF32 with bf16 corrections:
   within 1e-5 of the largest entry, about five times the error of a float32
   product, PERF.md) and as a float32 SIMT product at any other H
-  (`dw_splits`). `gru_dw_sum` adds the splits in an order fixed by the
+  (`dw_plan`). `gru_dw_sum` adds the splits in an order fixed by the
   shapes (`sum_plan`): bit-identical run to run, not the order of the splits.
 - `GRURecurrence`: a `torch.autograd.Function` over (x_proj, h0, wh, bh,
   reverse) whose forward is `gru_recurrence_train` and whose backward is
@@ -55,7 +56,7 @@ last_fwd_plan = None  # the FwdPlan of the last gru_fwd launch
 last_fwd_train_plan = None  # the FwdPlan of the last gru_fwd_train launch
 last_bwd_plan = None  # the BwdPlan of the last gru_bwd launch
 last_sum_plan = None  # the SumPlan of the last gru_dw_sum launch
-last_dw_plan = None  # (tensor cores?, splits, row-steps per split) of the last gru_dw_partial launch
+last_dw_plan = None  # the DwPlan of the last gru_dw_partial launch
 fwd_train_launches = 0
 bwd_launches = 0
 dw_partial_launches = 0
@@ -65,9 +66,11 @@ _paths: dict[str, dict[str, int]] = {}  # kernel -> path -> launches (launch_pat
 _MAX_HIDDEN = 1024  # one thread per hidden unit, one block per row tile
 _DW_TILE = 64  # the output tile of gru_dw_partial_kernel
 _DW_MIN_STEPS = 256  # fewest row-steps one split of the weight gradient sums
+_DW_MMA_MAX_STEPS = 2048  # most row-steps one split of gru_dw_mma_kernel sums
 _DW_MMA_CHUNK = 32  # row-steps gru_dw_mma_kernel stages at a time
 _DW_MMA_SLAB = 192  # columns of d_hp one block of gru_dw_mma_kernel owns
-_DW_MMA_HIDDEN = (64, 128)  # hidden sizes gru_dw_mma_kernel is built for
+_DW_MMA_ROWS = 128  # most rows of dWh one block of gru_dw_mma_kernel owns
+_DW_MMA_HIDDEN = (64, 128, 256, 512)  # hidden sizes gru_dw_mma_kernel is built for
 _SUM_THREADS = 256  # most threads of a gru_dw_sum block
 
 
@@ -105,8 +108,8 @@ _FWD_TRAIN_RESIDENT = {
 class BwdPlan(NamedTuple):
     """How one `gru_bwd` launch runs."""
 
-    path: str  # "general" or "registers"
-    rows_per_tile: int  # rows a block walks at once
+    path: str  # "general", "registers" or "cluster"
+    rows_per_tile: int  # rows a block (a cluster) walks at once
 
 
 # hidden size -> (blocks an SM holds, rows per tile built, most rows per tile
@@ -115,6 +118,21 @@ _BWD_RESIDENT = {
     64: (4, (1, 2, 4), 2),
     128: (1, (1, 2, 4), 4),
 }
+
+# hidden size -> (blocks of a cluster, rows per tile built) of
+# gru_bwd_cluster_kernel (TRUNET_BWD_CLUSTERS)
+_BWD_CLUSTER = {
+    256: (8, (2, 4, 8)),
+    512: (16, (2, 4, 8)),
+}
+
+
+class DwPlan(NamedTuple):
+    """How one `gru_dw_partial` launch runs."""
+
+    path: str  # "tensor_cores" or "simt"
+    splits: int  # partial sums written, one block row of the grid each
+    steps_per_split: int  # row-steps a split sums
 
 
 class SumPlan(NamedTuple):
@@ -137,8 +155,8 @@ def launch_counts() -> dict[str, int]:
 
 def launch_paths() -> dict[str, dict[str, int]]:
     """Launches of each kernel since the counts were last reset, by the path
-    each took: `gru_fwd` and `gru_fwd_train` "registers", "cluster" or
-    "general"; `gru_bwd` "registers" or "general"; `gru_dw_partial`
+    each took: `gru_fwd`, `gru_fwd_train` and `gru_bwd` "registers",
+    "cluster" or "general"; `gru_dw_partial`
     "tensor_cores" or "simt"; `gru_dw_sum` "sum"."""
     return {kernel: dict(by_path) for kernel, by_path in _paths.items()}
 
@@ -217,17 +235,36 @@ def fwd_train_plan(rows: int, steps: int, hidden: int, num_sms: int, max_cluster
     return FwdPlan("cluster" if cluster > 1 else "registers", _fewest_rows_in_one_wave(rows, tiles, wave))
 
 
-def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
-    """(splits, row-steps per split) of the weight-gradient reduction over
-    `steps` = rows * T, each split summing at least 256 row-steps.
+def dw_plan(steps: int, hidden: int, num_sms: int) -> DwPlan:
+    """The plan of one `gru_dw_partial` launch: the tensor cores at the H
+    they are built for, else the SIMT kernel, over `dw_splits`."""
+    path = "tensor_cores" if hidden in _DW_MMA_HIDDEN else "simt"
+    return DwPlan(path, *dw_splits(steps, hidden, num_sms, path))
 
-    About two blocks per SM either way. On the tensor cores (H 64 and 128) a
-    block owns all H rows and 192 columns of dWh, and a split is whole chunks
-    of 32 row-steps; the SIMT kernel (any other H) has 64 x 64 output tiles.
+
+def dw_splits(steps: int, hidden: int, num_sms: int, path: str | None = None) -> tuple[int, int]:
+    """(splits, row-steps per split) of the weight-gradient reduction over
+    `steps` = rows * T on `path` (default: the one `dw_plan` takes), each
+    split summing at least 256 row-steps.
+
+    The SIMT kernel (64 x 64 output tiles) takes about two blocks per SM.
+    On the tensor cores a block owns 192 columns of dWh and all H rows (H
+    64, 128) or 128 of them (H 256, 512: the SM holds one such block), and a
+    split is whole chunks of 32 row-steps. The splits fill whole waves of
+    the card's blocks, at least two at H 64 and 128, and as many as keep a
+    split at most 2,048 row-steps: the float32 accumulators lose ~5e-9 of
+    the largest entry per row-step a split sums (on an H100 at 256 x 251 x
+    512: 8.3e-5 at 16,064 a split, 1.8e-5 at 4,032, 8.5e-6 at 1,952, against
+    DW_RTOL's 1e-4; 1,952 a split took 1.650 ms where 8,032 took 1.589). At
+    4,016 x 16 x 256 33 splits took 0.426-0.431 ms, 16 splits 0.425-0.429
+    (scripts/torch_gru_kernel_profile.py).
     """
-    if hidden in _DW_MMA_HIDDEN:
-        slabs = 3 * hidden // _DW_MMA_SLAB
-        splits = max(1, min(-(-steps // _DW_MIN_STEPS), 2 * num_sms // slabs))
+    if (path or ("tensor_cores" if hidden in _DW_MMA_HIDDEN else "simt")) == "tensor_cores":
+        tiles = 3 * hidden // _DW_MMA_SLAB * max(1, hidden // _DW_MMA_ROWS)
+        waves = 2 if hidden <= _DW_MMA_ROWS else 1
+        while (waves * num_sms // tiles) * _DW_MMA_MAX_STEPS < steps:
+            waves += 1
+        splits = max(1, min(-(-steps // _DW_MIN_STEPS), waves * num_sms // tiles))
         per_split = -(-steps // (splits * _DW_MMA_CHUNK)) * _DW_MMA_CHUNK
         return -(-steps // per_split), per_split
     tiles = -(-hidden // _DW_TILE) * -(-3 * hidden // _DW_TILE)
@@ -236,7 +273,7 @@ def dw_splits(steps: int, hidden: int, num_sms: int) -> tuple[int, int]:
     return -(-steps // per_split), per_split
 
 
-def bwd_plan(rows: int, steps: int, hidden: int, num_sms: int) -> BwdPlan:
+def bwd_plan(rows: int, steps: int, hidden: int, num_sms: int, max_clusters: int | None = None) -> BwdPlan:
     """The plan of one `gru_bwd` launch.
 
     "registers" (H 64, 128) keeps Wh in registers; its blocks stay on the
@@ -246,9 +283,19 @@ def bwd_plan(rows: int, steps: int, hidden: int, num_sms: int) -> BwdPlan:
     at H 64 and 4 at H 128: a wider step costs more than the waves it saves
     (on an H100, 16,064 x 16 x 64: 0.31 ms at 2 rows, 0.33 at 4; 1,024 x 251
     x 128: 0.86 ms at 4, 0.90 at 8; scripts/torch_gru_kernel_profile.py,
-    PERF.md). "general" is the kernel for every other H, with
-    `rows_per_block`.
+    PERF.md). "cluster" (H 256, 512) keeps Wh in the registers of a cluster
+    of 8 and 16 blocks, whose clusters walk row tile after row tile; it takes
+    the fewest rows per tile that keep the tiles within one wave of
+    `max_clusters` clusters (what the card says it holds; by default the SMs
+    over the cluster size), at most 8 (on an H100, 4,016 x 16 x 256: 1.51 /
+    1.08-1.09 / 1.00 ms at 2 / 4 / 8 rows; 256 x 251 x 512: 7.69 / 5.36 /
+    4.32 ms; scripts/torch_gru_kernel_profile.py). "general" is the kernel
+    for every other H, with `rows_per_block`.
     """
+    if hidden in _BWD_CLUSTER:
+        cluster, tiles = _BWD_CLUSTER[hidden]
+        wave = max_clusters if max_clusters is not None else num_sms // cluster
+        return BwdPlan("cluster", _fewest_rows_in_one_wave(rows, tiles, wave))
     if hidden not in _BWD_RESIDENT:
         return BwdPlan("general", rows_per_block(rows, hidden, num_sms))
     per_sm, tiles, most = _BWD_RESIDENT[hidden]
@@ -296,7 +343,9 @@ def _train_lib() -> ctypes.CDLL:
     signatures = {
         "trunet_gru_fwd_train": [ptr] * 7 + [i32] * 5 + [ptr],
         "trunet_gru_bwd": [ptr] * 8 + [i32] * 6 + [ptr],
-        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 6 + [ptr],
+        "trunet_gru_bwd_cluster": [ptr] * 8 + [i32] * 6 + [ptr],
+        "trunet_gru_bwd_max_clusters": [i32],
+        "trunet_gru_dw_partial": [ptr] * 5 + [i32] * 7 + [ptr],
         "trunet_gru_dw_sum": [ptr] * 2 + [i32] * 4 + [ptr],
     }
     for name, argtypes in signatures.items():
@@ -388,6 +437,22 @@ def _max_clusters(device: torch.device, hidden: int, save: bool = False) -> int 
         _raise_on_error(lib, -clusters, f"{kernel} cluster occupancy query", "trunet_cuda_error_string")
     if clusters == 0:
         raise RuntimeError(f"{kernel}: the card cannot schedule the clusters of the H={hidden} kernel")
+    return clusters
+
+
+@functools.cache
+def _bwd_max_clusters(device: torch.device, hidden: int) -> int:
+    """Clusters of the cluster BPTT at `hidden` (256, 512) that `device`
+    holds at once, asked once per device, which also allows the kernel its
+    shared memory and cluster size there. Raises if the card cannot schedule
+    the cluster at all."""
+    lib = _train_lib()
+    with torch.cuda.device(device):
+        clusters = lib.trunet_gru_bwd_max_clusters(hidden)
+    if clusters < 0:
+        _raise_on_error(lib, -clusters, "gru_bwd cluster occupancy query", "trunet_gru_train_error_string")
+    if clusters == 0:
+        raise RuntimeError(f"gru_bwd: the card cannot schedule the clusters of the H={hidden} kernel")
     return clusters
 
 
@@ -525,15 +590,19 @@ def _launch_bwd(g, g_hT, out, saved, h0, wh, reverse, plan=None):
     dh0 = torch.empty((rows, hidden), dtype=torch.float32, device=out.device)
     if rows == 0:
         return d_xp, dh0
-    plan = plan or bwd_plan(rows, steps, hidden, _num_sms(out.device))
+    max_clusters = _bwd_max_clusters(out.device, hidden) if hidden in _BWD_CLUSTER else None
+    plan = plan or bwd_plan(rows, steps, hidden, _num_sms(out.device), max_clusters)
     lib = _train_lib()
+    args = (g.data_ptr(), g_hT.data_ptr(), out.data_ptr(), saved.data_ptr(), h0.data_ptr(),
+            wh.data_ptr(), d_xp.data_ptr(), dh0.data_ptr(), rows, steps, hidden, int(reverse), plan.rows_per_tile)
     with torch.cuda.device(out.device):
-        err = lib.trunet_gru_bwd(
-            g.data_ptr(), g_hT.data_ptr(), out.data_ptr(), saved.data_ptr(), h0.data_ptr(),
-            wh.data_ptr(), d_xp.data_ptr(), dh0.data_ptr(),
-            rows, steps, hidden, int(reverse), plan.rows_per_tile, int(plan.path != "general"),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.path == "cluster":
+            if max_clusters is None:
+                raise ValueError(f"gru_bwd has no cluster path at H={hidden}")
+            err = lib.trunet_gru_bwd_cluster(*args, max_clusters, stream)
+        else:
+            err = lib.trunet_gru_bwd(*args, int(plan.path == "registers"), stream)
     _raise_on_error(lib, err, f"gru_bwd {plan}", "trunet_gru_train_error_string")
     bwd_launches += 1
     last_bwd_plan = plan
@@ -548,8 +617,9 @@ def dw_partial(out, h0, d_xp, saved, reverse: bool = False) -> torch.Tensor:
 
 
 def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
-    """Launches `gru_dw_partial` on `plan` = (splits, row-steps per split);
-    default: `dw_splits`."""
+    """Launches `gru_dw_partial` on `plan` (default: `dw_plan` of the
+    shapes). The tensor cores are built for H 64, 128, 256 and 512; the SIMT
+    kernel takes any H."""
     global dw_partial_launches, last_dw_plan
     _require_card(out, "gru_dw_partial")
     rows, steps, hidden = out.shape
@@ -559,7 +629,10 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
     _check_shape("saved", saved, (rows, steps, 4 * hidden))
     if rows < 1 or steps < 1:
         raise ValueError(f"gru_dw_partial needs rows, T >= 1, got {rows}, {steps}")
-    tensor_cores = hidden in _DW_MMA_HIDDEN
+    plan = plan or dw_plan(rows * steps, hidden, _num_sms(out.device))
+    tensor_cores = plan.path == "tensor_cores"
+    if tensor_cores and hidden not in _DW_MMA_HIDDEN:
+        raise ValueError(f"gru_dw_partial has no tensor-core kernel at H={hidden}")
     if tensor_cores:
         # the kernel copies 16 bytes at a time and indexes row-steps with an int
         for name, t in (("out", out), ("h0", h0), ("d_xp", d_xp), ("saved", saved)):
@@ -567,19 +640,19 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
                 raise ValueError(f"gru_dw_partial at H={hidden} needs {name} aligned to 16 bytes")
         if rows * steps >= 2**31:
             raise ValueError(f"gru_dw_partial at H={hidden} takes rows * T < 2^31, got {rows * steps}")
-    splits, per_split = plan or dw_splits(rows * steps, hidden, _num_sms(out.device))
+    _, splits, per_split = plan
     part = torch.empty((splits, 3 * hidden * (hidden + 1)), dtype=torch.float32, device=out.device)
     lib = _train_lib()
     with torch.cuda.device(out.device):
         err = lib.trunet_gru_dw_partial(
             out.data_ptr(), h0.data_ptr(), d_xp.data_ptr(), saved.data_ptr(), part.data_ptr(),
-            rows, steps, hidden, int(reverse), splits, per_split,
+            rows, steps, hidden, int(reverse), splits, per_split, int(tensor_cores),
             torch.cuda.current_stream().cuda_stream,
         )
-    last_dw_plan = (tensor_cores, splits, per_split)
-    _raise_on_error(lib, err, f"gru_dw_partial {last_dw_plan}", "trunet_gru_train_error_string")
+    _raise_on_error(lib, err, f"gru_dw_partial {plan}", "trunet_gru_train_error_string")
+    last_dw_plan = plan
     dw_partial_launches += 1
-    _count_path("gru_dw_partial", "tensor_cores" if tensor_cores else "simt")
+    _count_path("gru_dw_partial", plan.path)
     return part
 
 

@@ -32,6 +32,13 @@ class FeaturizerState(NamedTuple):
     frame_count: torch.Tensor  # int32, 0 before the first frame
 
 
+def phase_of(spec: torch.Tensor) -> torch.Tensor:
+    """The angle of each bin, 0 where the bin is exactly 0. torch.fft.rfft
+    gives such a bin (digital silence, zero padding) a real part of -0.0
+    about half the time, whose angle is pi; JAX's FFT gives +0.0 and 0."""
+    return torch.where(spec.abs() == 0, torch.zeros_like(spec), spec).angle()
+
+
 def amp_to_db(magnitude: torch.Tensor, ref_level_db: float = 25.0) -> torch.Tensor:
     """20*log10(clamp(mag, 1e-7)) - ref."""
     return 20.0 * torch.log10(torch.clamp(magnitude, min=1e-7)) - ref_level_db
@@ -102,7 +109,7 @@ class Featurizer:
     def features_from_spec(self, spec: torch.Tensor) -> torch.Tensor:
         """Complex spec (..., T, F) -> features (..., T, F, C)."""
         magnitude = spec.abs()
-        real_demod, imag_demod = demod_phase(spec.angle(), dim=-2)
+        real_demod, imag_demod = demod_phase(phase_of(spec), dim=-2)
         chans = [
             self._channel(name, magnitude, real_demod, imag_demod)
             for name in self.config.channels
@@ -128,7 +135,7 @@ class Featurizer:
         """
         c = self.config
         magnitude = spec_t.abs()
-        raw_phase = spec_t.angle()
+        raw_phase = phase_of(spec_t)
         # the first frame passes through: no previous frame to unwrap against
         started = (state.frame_count > 0)[..., None]
         prev_phase = torch.where(started, state.prev_phase, raw_phase)

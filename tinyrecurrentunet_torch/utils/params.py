@@ -6,7 +6,8 @@ the model (`count_params`, `print_size`) and on its `state_dict`
 (`weight_scaling_init`), whose names map onto the flax tree
 (`weights.py`): a 2-D or 3-D `weight` is a Dense or Conv `kernel` (a 1-D one
 is a BatchNorm `scale`), `depthwise_weight` and `tr_weight` are
-`depthwise_kernel` and `tr_kernel`, and the GRU keeps `wi_fwd`.
+`depthwise_kernel` and `tr_kernel`, and the GRU keeps `wi_fwd`. The small
+helpers `rescale`, `flatten` and `std_normal` mirror the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,24 @@ from torch import nn
 
 # state_dict leaf of a kernel -> leaf of its bias (None: a kernel without one)
 _KERNEL_BIAS = {"weight": "bias", "depthwise_weight": "depthwise_bias", "tr_weight": "tr_bias", "wi_fwd": None}
+
+
+def rescale(x) -> torch.Tensor:
+    """Min-max rescale to [0, 1] (reference `util.py:26-27`)."""
+    x = torch.as_tensor(x)
+    return (x - x.min()) / (x.max() - x.min())
+
+
+def flatten(v) -> list:
+    """Flatten one nesting level (reference `util.py:22-23`)."""
+    return [x for y in v for x in y]
+
+
+def std_normal(generator: torch.Generator, size, device=None) -> torch.Tensor:
+    """Standard-normal float32 sample of shape `size` (reference
+    `util.py:160-164`), drawn from `generator` instead of CUDA's global
+    state; the JAX package takes a PRNG key, so the numbers differ."""
+    return torch.randn(size, generator=generator, device=device)
 
 
 def count_params(model: nn.Module) -> int:
