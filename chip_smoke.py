@@ -46,12 +46,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    just after (3 gru_fwd a hop, nothing else); check it against the same
    streaming on the CPU and, at the 3-hop shift, against the card's offline
    Denoiser.run; stream the clip led by 0.5 s of digital silence against
-   the same streaming on the CPU (its distances to float64 logged); log per-hop latency at 1 and 4 hops a call (median, p99,
-   max, deadline misses against the hop, RTF, kernels a hop, the device's
-   idle share), `MultiStreamDenoiser` at 1, 16, 64 and 256 streams (3 of 64
-   streams checked against their single runs), a 10 s soak through the
-   native stream host (built from cpp/ into build/trunet_host/) and one
-   `stream_file` run;
+   the same streaming on the CPU (its distances to float64 logged); at 1
+   and 4 hops a call, the step replayed from its CUDA graph held against
+   the same body run uncaptured over the clip (GRAPH_ATOL), and the per-hop
+   latency of each (median, p99, max, deadline misses against the hop, RTF,
+   kernels a hop, the device's idle share) beside the card's name and power
+   limit; `MultiStreamDenoiser` at 1, 16, 64 and 256 streams, replayed and
+   uncaptured (3 of 64 streams checked against their single runs), a 10 s
+   soak through the native stream host (built from cpp/ into
+   build/trunet_host/) and one `stream_file` run, both replayed;
 7. drive the training path in bf16: `train()` on config/proc16k.json as
    shipped (train_compute_dtype bfloat16), batch 64 of 2 s clips, 5 steps
    on phase 5's dataset and initial weights, launch counts around it (15 of
@@ -102,9 +105,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the output against a float64 run on the CPU, 20 warm calls timed, and large16k's
    `use_pallas_gru` "never" against "always"; (b) `StreamingDenoiser` at
    one hop a call against the CPU and at the 3-hop shift against offline,
-   per-hop latency against the config's own hop (8 ms, 2.667 ms at 48
-   kHz), misses logged and not held; for proc48k `MultiStreamDenoiser` at
-   16 and 64 streams and a 10 s soak; (c) `run_quality_eval`, float32 and
+   the replayed step against the uncaptured body (GRAPH_ATOL) and the
+   per-hop latency of each against the config's own hop (8 ms, 2.667 ms at
+   48 kHz), for proc48k also at two hops a call (5.333 ms, the JAX
+   package's promoted 48 kHz mode), misses logged and not held; for proc48k
+   `MultiStreamDenoiser` at 16 and 64 streams and a 10 s soak; (c) `run_quality_eval`, float32 and
    the int8 pack, on 16 files of the procedural testset at each rate,
    against the JAX package's scores on the same files; (d) `train()` as
    shipped (bf16, batch 16) on large16k, proc48k and tbptt16k (8 s crops in
@@ -224,6 +229,11 @@ ALIGN_FROM = 300
 ALIGN_RMS = 0.25
 ALIGN_MARGIN = 4.0
 STREAM_COUNTS = (1, 16, 64, 256)  # multi-stream batch sizes timed
+# The streaming step replayed from its CUDA graph against the same body run
+# uncaptured (`_process(..., replay=False)`) on the same clip from the same
+# start: the same kernels in the same order on the same buffers (0 measured
+# at the flagship's and proc48k's widths, 3.0e-8 at large16k's).
+GRAPH_ATOL = 1e-6
 SOAK_SECONDS = 10.0
 # Phases 3 and 6 also denoise and stream the 4 s clip led by this much
 # digital silence: torch.fft.rfft gives an exactly-zero bin a real part of
@@ -1113,34 +1123,61 @@ def hop_profile(step, calls: int) -> dict:
     }
 
 
-def stream_latency(den, audio: np.ndarray, budget_s: float) -> dict:
-    """Per-call latency on the host clock of `den.process_block` over the
-    whole of `audio`, numpy block in, numpy block out (synchronised: the
-    copy back waits for the device), then the device's share of it."""
+def stream_latency(den, audio: np.ndarray, budget_s: float, replay: bool = True) -> tuple[dict, np.ndarray]:
+    """Per-call latency on the host clock of `den.process_block` (the step
+    replayed from its CUDA graph) or, with `replay` False, of the same body
+    uncaptured (`den._process(..., replay=False)`) over the whole of
+    `audio` from a fresh state, numpy block in, numpy block out
+    (synchronised: the copy back waits for the device), then the device's
+    share of it. Returns the row and the output."""
     hop = den.hop
+
+    def call(state, block):
+        return den.process_block(state, block) if replay else den._process(state, block, replay=False)
+
     blocks = [audio[i : i + hop] for i in range(0, len(audio) - hop + 1, hop)]
     state = den.init_state()
     for block in blocks[:5]:
-        state = den.process_block(state, block)[1]
+        state = call(state, block)[1]
     state = den.init_state()
-    lat = []
+    lat, outs = [], []
     for block in blocks:
         t0 = time.perf_counter()
-        out, state = den.process_block(state, block)
-        out.cpu().numpy()
+        out, state = call(state, block)
+        outs.append(out.cpu().numpy())
         lat.append(time.perf_counter() - t0)
     box = {"state": den.init_state()}
 
     def step():
-        box["state"] = den.process_block(box["state"], blocks[0])[1]
+        box["state"] = call(box["state"], blocks[0])[1]
 
     prof = hop_profile(step, 20)
-    row = {"chunk_frames": den.chunk_frames, "calls": len(lat), "budget_ms": budget_s * 1e3,
-           **percentiles_ms(lat), "deadline_misses": int(np.sum(np.asarray(lat) > budget_s)),
+    row = {"step": "graph" if replay else "body", "chunk_frames": den.chunk_frames, "calls": len(lat),
+           "budget_ms": budget_s * 1e3, **percentiles_ms(lat),
+           "deadline_misses": int(np.sum(np.asarray(lat) > budget_s)),
            "rtf": float(np.sum(lat)) / (len(lat) * budget_s), **prof}
     row["kernels_a_hop"] = prof["kernels"] / den.chunk_frames
     row["device_idle_share"] = 1.0 - prof["device_busy_ms"] / row["median_ms"]
-    return row
+    return row, np.concatenate(outs)
+
+
+def stream_steps(den, audio: np.ndarray, budget_s: float, tag: str) -> dict:
+    """The replayed step and the uncaptured body of `den` over `audio` from
+    the same start (`stream_latency`, each): both rows logged, the outputs
+    held to GRAPH_ATOL of each other."""
+    graph, out_graph = stream_latency(den, audio, budget_s)
+    body, out_body = stream_latency(den, audio, budget_s, replay=False)
+    err = float(np.abs(out_graph - out_body).max())
+    smi = nvidia_smi_line()
+    for row in (graph, body):
+        log(f"{tag} {json.dumps({**row, 'device': smi})}")
+    log(f"{tag} chunk {den.chunk_frames}: graph vs body over {len(out_graph)} samples, max abs err {err:.3e} "
+        f"(tolerance {GRAPH_ATOL:.0e}); captures {den._captures}")
+    if err > GRAPH_ATOL or not np.isfinite(out_graph).all():
+        raise AssertionError(f"streaming graph vs body {err:.3e} > {GRAPH_ATOL:.0e}")
+    if den._captures != 1:
+        raise AssertionError(f"the denoiser captured its graph {den._captures} times")
+    return {"graph": graph, "body": body, "graph_vs_body_max_abs_err": err}
 
 
 def relative_rms(a: np.ndarray, b: np.ndarray) -> float:
@@ -1199,39 +1236,44 @@ def stream_clip(cfg, sd, clip: np.ndarray, cuda_gru, align=(ALIGN_RMS, ALIGN_MAR
 def multistream_rows(cfg, sd, stream_counts, cuda_gru, tag="[multistream]") -> list:
     """Per-call latency of `MultiStreamDenoiser` at each of `stream_counts`
     streams (35 timed calls of seeded noise after 5 warm ones), gru_fwd
-    launches a call and the streams one card keeps in real time."""
+    launches a call and the streams one card keeps in real time: the step
+    replayed from its CUDA graph, then the same body uncaptured."""
     from tinyrecurrentunet_torch.infer.multistream import MultiStreamDenoiser
 
     hop = cfg.featurizer.hop_length
     budget_s = hop / cfg.featurizer.sample_rate
     rng = np.random.default_rng(6)
+    smi = nvidia_smi_line()
     rows = []
     for n in stream_counts:
         ms = MultiStreamDenoiser(cfg, sd, n, device="cuda")
         blocks = (0.1 * rng.standard_normal((40, n, hop))).astype(np.float32)
-        state = ms.init_state()
-        for b in blocks[:5]:
-            state = ms.process_block(state, b)[1]
-        lat = []
-        cuda_gru.reset_launch_counts()
-        for b in blocks[5:]:
-            t0 = time.perf_counter()
-            o, state = ms.process_block(state, b)
-            o.cpu().numpy()
-            lat.append(time.perf_counter() - t0)
-        launches = cuda_gru.launch_counts()["gru_fwd"] / len(lat)
-        row = {"streams": n, "calls": len(lat), "budget_ms": budget_s * 1e3, **percentiles_ms(lat),
-               "deadline_misses": int(np.sum(np.asarray(lat) > budget_s)), "gru_fwd_a_call": launches}
-        row["realtime_streams"] = n * budget_s / (row["median_ms"] / 1e3)
-        log(f"{tag} {json.dumps(row)}")
-        rows.append(row)
+        for replay in (True, False):
+            state = ms.init_state()
+            for b in blocks[:5]:
+                state = ms._process(state, b, replay=replay)[1]
+            lat = []
+            cuda_gru.reset_launch_counts()
+            for b in blocks[5:]:
+                t0 = time.perf_counter()
+                o, state = ms.process_block(state, b) if replay else ms._process(state, b, replay=False)
+                o.cpu().numpy()
+                lat.append(time.perf_counter() - t0)
+            launches = cuda_gru.launch_counts()["gru_fwd"] / len(lat)
+            row = {"step": "graph" if replay else "body", "streams": n, "calls": len(lat),
+                   "budget_ms": budget_s * 1e3, **percentiles_ms(lat),
+                   "deadline_misses": int(np.sum(np.asarray(lat) > budget_s)), "gru_fwd_a_call": launches}
+            row["realtime_streams"] = n * budget_s / (row["median_ms"] / 1e3)
+            log(f"{tag} {json.dumps({**row, 'device': smi})}")
+            rows.append(row)
     return rows
 
 
 def streaming_main_path(cfg, clip: np.ndarray, cuda_gru) -> dict:
     """Phase 6: the port's streaming path on the card with the flagship's
-    weights. The 4 s clip streamed at one hop a call (`stream_clip`). Then
-    logged: per-hop latency at 1 and 4 hops a call, the multi-stream call
+    weights. The 4 s clip streamed at one hop a call (`stream_clip`). At 1
+    and 4 hops a call the replayed step against the uncaptured body
+    (`stream_steps`). Then logged: per-hop latency of both, the multi-stream call
     at STREAM_COUNTS streams (and 3 of 64 streams held against their single
     runs), a SOAK_SECONDS soak through the native host and one stream_file
     run."""
@@ -1259,10 +1301,9 @@ def streaming_main_path(cfg, clip: np.ndarray, cuda_gru) -> dict:
         raise AssertionError(f"silence-led streaming card vs CPU {silent_errs['card_vs_cpu']:.3e} > {STREAM_ATOL:.0e}")
     report["silence_led_max_abs_err"] = silent_errs
 
-    latency = [stream_latency(den, clip, budget_s)]
-    latency.append(stream_latency(StreamingDenoiser(cfg, sd, chunk_frames=4, device="cuda"), clip, 4 * budget_s))
-    for row in latency:
-        log(f"[stream-latency] {json.dumps(row)}")
+    latency = [stream_steps(den, clip, budget_s, "[stream-latency]")]
+    latency.append(stream_steps(StreamingDenoiser(cfg, sd, chunk_frames=4, device="cuda"), clip, 4 * budget_s,
+                                "[stream-latency]"))
 
     multi = multistream_rows(cfg, sd, STREAM_COUNTS, cuda_gru)
     ms64 = MultiStreamDenoiser(cfg, sd, 64, device="cuda")
@@ -1276,7 +1317,8 @@ def streaming_main_path(cfg, clip: np.ndarray, cuda_gru) -> dict:
         raise AssertionError(f"multi-stream vs single streams {multi_err:.3e} > {STREAM_ATOL:.0e}")
 
     soak = run_soak(cfg, sd, duration_s=SOAK_SECONDS, device="cuda")
-    log(f"[soak] {json.dumps(soak)} native library {native.library_path().relative_to(REPO)}")
+    log(f"[soak] {json.dumps(soak)} native library {native.library_path().relative_to(REPO)}, "
+        f"through the replayed step, {nvidia_smi_line()}")
     work = os.path.join(REPO, "build", "chip_smoke_stream")
     os.makedirs(work, exist_ok=True)
     from tinyrecurrentunet_torch.data.audio_io import read_wav, write_wav
@@ -1994,11 +2036,14 @@ def shipped_streaming(name, cfg, cuda_gru) -> dict:
     """Phase 11 (b): the shipped model `name` streamed on the card at one
     hop a call over the seeded 4 s clip at its config's rate (`stream_clip`:
     3 gru_fwd a hop, against the CPU, the 3-hop shift within the model's
-    SHIPPED_ALIGN bounds), its per-hop latency against the config's own
-    budget, hop_length / sample_rate; for proc48k also `MultiStreamDenoiser`
+    SHIPPED_ALIGN bounds), the replayed step against the uncaptured body
+    and the per-hop latency of each against the config's own budget,
+    hop_length / sample_rate (`stream_steps`; for proc48k also at two hops a
+    call against twice the budget); for proc48k also `MultiStreamDenoiser`
     at SHIPPED_STREAM_COUNTS streams and a SOAK_SECONDS soak through the
     native host. No result is held to real time: the misses are logged."""
     from tinyrecurrentunet_torch.infer.soak import run_soak
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
     from tinyrecurrentunet_torch.weights import load_pretrained
 
     sd = load_pretrained(os.path.join(REPO, "artifacts", SHIPPED[name]), cfg)
@@ -2007,13 +2052,15 @@ def shipped_streaming(name, cfg, cuda_gru) -> dict:
     den, report = stream_clip(cfg, sd, clip, cuda_gru, align=SHIPPED_ALIGN[name], tag=f"[shipped] {name} stream")
     if report["paths"] != {"gru_fwd": {"cluster" if name == "large16k" else "registers": 3 * report["hops"]}}:
         raise AssertionError(f"{name} streaming: launches by path {report['paths']}")
-    report["latency"] = stream_latency(den, clip, budget_s)
-    log(f"[shipped] {name} stream-latency {json.dumps(report['latency'])}")
+    report["latency"] = [stream_steps(den, clip, budget_s, f"[shipped] {name} stream-latency")]
+    if name == "proc48k":  # the JAX package's promoted 48 kHz mode: two hops a call
+        report["latency"].append(stream_steps(StreamingDenoiser(cfg, sd, chunk_frames=2, device="cuda"), clip,
+                                              2 * budget_s, f"[shipped] {name} stream-latency"))
     if name == "proc48k":
         report["multistream"] = multistream_rows(cfg, sd, SHIPPED_STREAM_COUNTS, cuda_gru,
                                                  tag=f"[shipped] {name} multistream")
         report["soak"] = soak = run_soak(cfg, sd, duration_s=SOAK_SECONDS, device="cuda")
-        log(f"[shipped] {name} soak {json.dumps(soak)}")
+        log(f"[shipped] {name} soak {json.dumps(soak)}, through the replayed step, {nvidia_smi_line()}")
         if soak["streaming_soak_sample_rate"] != cfg.featurizer.sample_rate:
             raise AssertionError(f"{name} soak at {soak['streaming_soak_sample_rate']} Hz")
     return report

@@ -522,6 +522,84 @@ def test_multistream_on_card_matches_cpu_and_single_streams(card):
         np.testing.assert_allclose(got[i], single.process(streams[i])[0], rtol=0, atol=2e-4)
 
 
+def _long_audio(samples, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / 16000
+    return (0.2 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(samples)).astype(np.float32)
+
+
+@pytest.mark.parametrize("chunk_frames,streams", [(1, 1), (2, 1), (4, 1), (1, 16)])
+def test_replayed_graph_equals_the_uncaptured_body(card, chunk_frames, streams):
+    """200 calls from one start: the captured step replayed against the same
+    body run eagerly (`_process(..., replay=False)`) by a second denoiser,
+    within 1e-6 (the same kernels in the same order: 0 expected)."""
+    from tinyrecurrentunet_torch.infer.multistream import MultiStreamDenoiser
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
+
+    cfg, sd, _ = _tiny_streaming()
+
+    def make():
+        if streams == 1:
+            return StreamingDenoiser(cfg, sd, chunk_frames=chunk_frames, device=card)
+        return MultiStreamDenoiser(cfg, sd, streams, chunk_frames=chunk_frames, device=card)
+
+    graph, body = make(), make()
+    calls = 200
+    audio = np.stack([_long_audio(calls * graph.hop, seed) for seed in range(streams)])
+    if streams == 1:
+        audio = audio[0]
+    state_g, state_b, err = graph.init_state(), body.init_state(), 0.0
+    for i in range(calls):
+        blocks = audio[..., i * graph.hop : (i + 1) * graph.hop]
+        out_g, state_g = graph.process_block(state_g, blocks)
+        out_b, state_b = body._process(state_b, blocks, replay=False)
+        err = max(err, float((out_g - out_b).abs().max()))
+    assert graph._captures == 1 and body._captures == 0
+    assert err <= 1e-6
+    for a, b in zip((state_g.in_buffer, *state_g.feat_state, state_g.tgru_h, state_g.ola_buffer),
+                    (state_b.in_buffer, *state_b.feat_state, state_b.tgru_h, state_b.ola_buffer)):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-6
+
+
+def test_denoiser_captures_once_then_replays(card):
+    """The first call captures; every later call, whatever state it is
+    given, replays the same graph and counts its 3 gru_fwd."""
+    from tinyrecurrentunet_torch.infer.multistream import MultiStreamDenoiser
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    for den in (StreamingDenoiser(cfg, sd, device=card), MultiStreamDenoiser(cfg, sd, 3, device=card)):
+        block = np.zeros(den._block_shape, np.float32)
+        state = den.process_block(den.init_state(), block)[1]
+        graph = den._graph
+        cuda_gru.reset_launch_counts()
+        for i in range(5):
+            state = den.process_block(state if i != 2 else den.init_state(), block)[1]
+        torch.cuda.synchronize()
+        assert den._graph is graph and den._captures == 1
+        assert cuda_gru.launch_counts() == {**{k: 0 for k in cuda_gru.launch_counts()}, "gru_fwd": 15}
+
+
+def test_a_failure_inside_capture_propagates(card, monkeypatch):
+    """No eager fallback: a wrapper that fails while the graph is captured
+    (after the warm-up ran it eagerly) fails process_block."""
+    from tinyrecurrentunet_torch.infer.streaming import StreamingDenoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    den = StreamingDenoiser(cfg, sd, device=card)
+    plain = cuda_gru.gru_recurrence
+
+    def failing(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced failure inside capture")
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_gru, "gru_recurrence", failing)
+    with pytest.raises(RuntimeError, match="forced failure inside capture"):
+        den.process_block(den.init_state(), audio[: den.hop])
+    assert den._graph is None
+
+
 def _bf16_gru_grads(gru, device, x, h0, g, g_h):
     xt = torch.from_numpy(x).to(device, torch.bfloat16).requires_grad_()
     ht = torch.from_numpy(h0).to(device, torch.bfloat16).requires_grad_()

@@ -34,9 +34,23 @@ class MultiStreamState(NamedTuple):
 
 
 class MultiStreamDenoiser(StreamCore):
+    """N streams, `chunk_frames` hops a call; N and chunk_frames are fixed
+    when it is built, so one CUDA graph serves every call.
+
+    The state `process_block` returns is the denoiser's own buffers, and the
+    next call advances them in place: pass it back as it is. Any other state
+    (a fresh `init_state()`, another denoiser's) is copied into the buffers
+    first. As with the JAX package's donated state, a state an earlier call
+    returned has been consumed once a later call has run: it reads as the
+    latest state.
+    """
+
     def __init__(self, cfg, state_dict: dict, num_streams: int, chunk_frames: int = 1, device="cuda"):
-        super().__init__(cfg, state_dict, chunk_frames=chunk_frames, device=device)
-        self.num_streams = num_streams
+        super().__init__(cfg, state_dict, chunk_frames=chunk_frames, device=device, num_streams=num_streams)
+        in_buffer, prev_phase, unwrap_corr, pcen_m, frame_count, tgru_h, ola = self._buffers
+        self._state = MultiStreamState(in_buffer, FeaturizerState(prev_phase, unwrap_corr, pcen_m, frame_count),
+                                       tgru_h, ola)
+        self._block_shape = (num_streams, self.hop)
 
     def init_state(self) -> MultiStreamState:
         n, dev = self.num_streams, self.device
@@ -47,16 +61,10 @@ class MultiStreamDenoiser(StreamCore):
             ola_buffer=torch.zeros((n, self.n_fft), device=dev),
         )
 
-    @torch.inference_mode()
     def process_block(self, state: MultiStreamState, blocks):
         """blocks (N, chunk_frames*hop) in -> (the same shape, delayed, on
-        the device; the new state)."""
-        blocks = self._input(blocks)
-        if blocks.shape != (self.num_streams, self.hop):
-            raise ValueError(f"blocks of shape {tuple(blocks.shape)}, expected ({self.num_streams}, {self.hop})")
-        specs, in_buffer = self._spectra(state.in_buffer, blocks)
-        out, feat_state, tgru_h, ola = self._advance(specs, state.feat_state, state.tgru_h, state.ola_buffer)
-        return out, MultiStreamState(in_buffer, feat_state, tgru_h, ola)
+        the device; the new state, which is the denoiser's buffers)."""
+        return self._process(state, blocks)
 
     def process(self, audio: np.ndarray):
         """Stream N waveforms (N, L) block by block; returns ((N, L) numpy,

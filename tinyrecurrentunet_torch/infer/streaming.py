@@ -19,10 +19,24 @@ phase-unwrap state differs only by multiples of 2*pi (sin/cos-invariant).
 `chunk_frames=K` processes K hops per call: the same math as K single
 steps (tested), one model call for K hops at K*hop latency; the TGRU walks
 the K frames inside the call.
+
+The step runs in place, as the JAX package's jitted step runs over its
+donated state (`jax.jit(step, donate_argnums=(1,))`): the denoiser owns the
+state's buffers, a static input and a static output, and its step
+(`StreamCore._step_into`) reads the state from the buffers and writes the
+next state into them at its end. On the CPU `process_block` runs that body.
+On a card its first call warms the body up on a side stream (the kernels'
+build, cuFFT's plans, cuDNN's choices), captures one call of it into a CUDA
+graph and replays the graph; every later call stages the block into the
+static input through pinned host memory, replays the graph and copies the
+output out: one graph launch a hop, where the body is ~320 launches. A
+capture or a replay that fails raises; nothing falls back to the eager
+body. `process_spec_frame`, a tool of the alignment tests, stays eager.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +47,7 @@ from tinyrecurrentunet_torch.config import Config
 from tinyrecurrentunet_torch.infer.denoise import resolve_device
 from tinyrecurrentunet_torch.models import TRUNet
 from tinyrecurrentunet_torch.models.phm import denoised_spec_from_output
+from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.signal.features import FeaturizerState
 from tinyrecurrentunet_torch.signal.stft import frame_signal, overlap_add
@@ -46,10 +61,13 @@ class StreamState(NamedTuple):
 
 
 class StreamCore:
-    """The model, the featurizer and the step shared by the single- and the
-    multi-stream denoiser; every tensor of a step has a leading stream axis."""
+    """The model, the featurizer, the state buffers and the step shared by
+    the single- and the multi-stream denoiser; every tensor of a step has a
+    leading stream axis of `num_streams`."""
 
-    def __init__(self, cfg: Config, state_dict: dict, chunk_frames: int = 1, device="cuda"):
+    _WARMUP = 3  # eager runs of the body before its capture
+
+    def __init__(self, cfg: Config, state_dict: dict, chunk_frames: int = 1, device="cuda", num_streams: int = 1):
         fz_cfg = cfg.featurizer
         if fz_cfg.n_fft % fz_cfg.hop_length != 0:
             raise ValueError("streaming requires hop | n_fft")
@@ -65,10 +83,105 @@ class StreamCore:
         self.chunk_frames = chunk_frames
         self.hop = self.frame_hop * chunk_frames  # samples per call
         self.n_fft = fz_cfg.n_fft
+        self.num_streams = num_streams
+        n, dev = num_streams, self.device
+        with torch.inference_mode():
+            # in_buffer, the FeaturizerState's four tensors, tgru_h, ola_buffer
+            self._buffers = (
+                torch.zeros((n, self.n_fft), device=dev),
+                *self.featurizer.init_state((n,), device=dev),
+                self.model.init_tgru_state(n, fz_cfg.num_freqs, device=dev),
+                torch.zeros((n, self.n_fft), device=dev),
+            )
+            self._in = torch.zeros((n, self.hop), device=dev)
+            self._out = torch.zeros((n, self.hop), device=dev)
+        on_card = dev.type == "cuda"
+        self._pinned = torch.empty((n, self.hop), pin_memory=True) if on_card else None
+        self._staged = torch.cuda.Event() if on_card else None  # the last copy out of _pinned
+        self._graph = None
+        self._graph_launches = None  # the kernels' launches one replay runs (cuda_gru.capture_tally)
+        self._captures = 0
 
     def _input(self, samples) -> torch.Tensor:
         """numpy or tensor samples -> float32 on the denoiser's device."""
         return torch.as_tensor(samples, dtype=torch.float32, device=self.device)
+
+    def _adopt(self, state):
+        """Copies a state that is not the buffers into them: a fresh or a
+        foreign state. The state the last call returned (`self._state`, the
+        buffers as the public state holds them) is taken as it stands."""
+        for mine, theirs in zip(_leaves(self._state), _leaves(state)):
+            if theirs is mine:
+                continue
+            if theirs.shape != mine.shape:
+                raise ValueError(f"state tensor of shape {tuple(theirs.shape)}, expected {tuple(mine.shape)}")
+            mine.copy_(theirs)
+
+    def _stage(self, blocks):
+        """The samples (num_streams, hop) into the static input; on a card
+        from host memory through the pinned buffer, without a sync."""
+        shape = self._in.shape
+        if isinstance(blocks, torch.Tensor) and blocks.device == self._in.device:
+            self._in.copy_(blocks.reshape(shape))
+        elif self._pinned is None:
+            self._in.copy_(torch.as_tensor(blocks, dtype=torch.float32).reshape(shape))
+        else:
+            self._staged.synchronize()  # the last call's copy has left the pinned buffer
+            self._pinned.copy_(torch.as_tensor(blocks, dtype=torch.float32).reshape(shape))
+            self._in.copy_(self._pinned, non_blocking=True)
+            self._staged.record()
+
+    def _step_into(self):
+        """The hop, in place: the staged samples and the state buffers in,
+        the output buffer and the next state out. Every new value is a fresh
+        tensor before it is copied back, so no write aliases a read."""
+        in_buffer, prev_phase, unwrap_corr, pcen_m, frame_count, tgru_h, ola = self._buffers
+        feat_state = FeaturizerState(prev_phase, unwrap_corr, pcen_m, frame_count)
+        specs, next_in = self._spectra(in_buffer, self._in)
+        out, next_feat, next_h, next_ola = self._advance(specs, feat_state, tgru_h, ola)
+        self._out.copy_(out)
+        for buf, new in zip(self._buffers, (next_in, *next_feat, next_h, next_ola)):
+            buf.copy_(new)
+
+    def _capture(self):
+        """Warms the body up on a side stream (the state restored after),
+        then captures one call of it into the denoiser's CUDA graph."""
+        saved = [b.clone() for b in self._buffers]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self._WARMUP):
+                self._step_into()
+        torch.cuda.current_stream().wait_stream(side)
+        for buf, b in zip(self._buffers, saved):
+            buf.copy_(b)
+        graph = torch.cuda.CUDAGraph()
+        with cuda_gru.capture_tally() as tally, torch.cuda.graph(graph):
+            self._step_into()
+        self._graph, self._graph_launches = graph, tally
+        self._captures += 1
+
+    @torch.inference_mode()
+    def _process(self, state, blocks, replay: bool = True):
+        """`process_block`'s work: the state adopted, the samples staged,
+        the step run (on a card replayed from the graph, or with `replay`
+        False as the uncaptured body, which the card tests and chip_smoke.py
+        hold and time the graph against), the output copied out."""
+        if tuple(np.shape(blocks)) != self._block_shape:
+            raise ValueError(f"blocks of shape {tuple(np.shape(blocks))}, expected {self._block_shape}")
+        on_card = self.device.type == "cuda"
+        # the staging, the capture and the replay on the streams of the denoiser's card
+        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+            self._adopt(state)
+            self._stage(blocks)
+            if replay and on_card:
+                if self._graph is None:
+                    self._capture()
+                self._graph.replay()
+                cuda_gru.add_launches(self._graph_launches)
+            else:
+                self._step_into()
+            return self._out.clone().reshape(self._block_shape), self._state
 
     def _spectra(self, in_buffer: torch.Tensor, blocks: torch.Tensor):
         """Slide the analysis window over new samples (N, k*hop): returns
@@ -99,6 +212,12 @@ class StreamCore:
         return out, feat_state, tgru_h, ola
 
 
+def _leaves(state) -> tuple:
+    """A StreamState's or MultiStreamState's tensors, in buffer order."""
+    in_buffer, feat_state, tgru_h, ola_buffer = state
+    return (in_buffer, *feat_state, tgru_h, ola_buffer)
+
+
 def _batched(state: FeaturizerState) -> FeaturizerState:
     return FeaturizerState(*(t[None] for t in state))
 
@@ -108,7 +227,22 @@ def _unbatched(state: FeaturizerState) -> FeaturizerState:
 
 
 class StreamingDenoiser(StreamCore):
-    """One stream, `chunk_frames` hops a call."""
+    """One stream, `chunk_frames` hops a call.
+
+    The state `process_block` returns is the denoiser's own buffers (views
+    of them), and the next call advances them in place: pass it back as it
+    is. Any other state (a fresh `init_state()`, one `process_spec_frame`
+    returned, another denoiser's) is copied into the buffers first. As with
+    the JAX package's donated state, a state an earlier call returned has
+    been consumed once a later call has run: it reads as the latest state.
+    """
+
+    def __init__(self, cfg: Config, state_dict: dict, chunk_frames: int = 1, device="cuda"):
+        super().__init__(cfg, state_dict, chunk_frames=chunk_frames, device=device)
+        in_buffer, prev_phase, unwrap_corr, pcen_m, frame_count, tgru_h, ola = self._buffers
+        self._state = StreamState(in_buffer[0], FeaturizerState(prev_phase[0], unwrap_corr[0], pcen_m[0],
+                                                                frame_count[0]), tgru_h, ola[0])
+        self._block_shape = (self.hop,)
 
     def init_state(self) -> StreamState:
         dev = self.device
@@ -119,15 +253,11 @@ class StreamingDenoiser(StreamCore):
             ola_buffer=torch.zeros(self.n_fft, device=dev),
         )
 
-    @torch.inference_mode()
     def process_block(self, state: StreamState, block):
         """chunk_frames*hop samples in (numpy or tensor) -> (the same number
-        of samples, delayed, as a tensor on the device; the new state)."""
-        specs, in_buffer = self._spectra(state.in_buffer[None], self._input(block)[None])
-        out, feat_state, tgru_h, ola = self._advance(
-            specs, _batched(state.feat_state), state.tgru_h, state.ola_buffer[None]
-        )
-        return out[0], StreamState(in_buffer[0], _unbatched(feat_state), tgru_h, ola[0])
+        of samples, delayed, as a tensor on the device; the new state, which
+        is the denoiser's buffers)."""
+        return self._process(state, block)
 
     @torch.inference_mode()
     def process_spec_frame(self, state: StreamState, spec_t):

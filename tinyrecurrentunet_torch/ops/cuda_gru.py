@@ -38,10 +38,14 @@ nothing moves to the CPU.
 Each kernel has a launch count (`launch_counts()`): its wrapper adds one
 where it launches the kernel, and nowhere else. `launches` is the count of
 `gru_fwd`. `launch_paths()` splits the same launches by the path each took.
+The counts are of kernels run: a launch captured into a CUDA graph is
+recorded by `capture_tally` instead, and counted at each replay of the
+graph by `add_launches` (the streaming denoisers do this).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -62,6 +66,9 @@ bwd_launches = 0
 dw_partial_launches = 0
 dw_sum_launches = 0
 _paths: dict[str, dict[str, int]] = {}  # kernel -> path -> launches (launch_paths)
+_capture: dict[str, dict[str, int]] | None = None  # the open capture_tally
+_COUNTER = {"gru_fwd": "launches", "gru_fwd_train": "fwd_train_launches", "gru_bwd": "bwd_launches",
+            "gru_dw_partial": "dw_partial_launches", "gru_dw_sum": "dw_sum_launches"}
 
 _MAX_HIDDEN = 1024  # one thread per hidden unit, one block per row tile
 _DW_TILE = 64  # the output tile of gru_dw_partial_kernel
@@ -161,9 +168,40 @@ def launch_paths() -> dict[str, dict[str, int]]:
     return {kernel: dict(by_path) for kernel, by_path in _paths.items()}
 
 
-def _count_path(kernel: str, path: str):
-    by_path = _paths.setdefault(kernel, {})
-    by_path[path] = by_path.get(path, 0) + 1
+def _count(kernel: str, path: str):
+    """One launch of `kernel` on `path` by its wrapper. Made while the
+    current stream captures a CUDA graph, it runs only when the graph is
+    replayed: it goes into the open `capture_tally` (uncounted without one),
+    which each replay adds with `add_launches`."""
+    if torch.cuda.is_current_stream_capturing():
+        if _capture is not None:
+            by_path = _capture.setdefault(kernel, {})
+            by_path[path] = by_path.get(path, 0) + 1
+        return
+    add_launches({kernel: {path: 1}})
+
+
+def add_launches(tally: dict[str, dict[str, int]]):
+    """Adds {kernel: {path: launches}} to the counts: what one replay of a
+    CUDA graph runs, as its `capture_tally` recorded it."""
+    g = globals()
+    for kernel, by_path in tally.items():
+        for path, n in by_path.items():
+            g[_COUNTER[kernel]] += n
+            counted = _paths.setdefault(kernel, {})
+            counted[path] = counted.get(path, 0) + n
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Records, and does not count, the launches made while a CUDA graph is
+    captured inside the block; yields the tally {kernel: {path: launches}}."""
+    global _capture
+    _capture = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture = None
 
 
 def reset_launch_counts():
@@ -471,7 +509,7 @@ def gru_recurrence(
 
 def _launch(x_proj, h0, wh, bh, reverse, plan=None):
     """Launches `gru_fwd` on `plan` (default: `fwd_plan` of the shapes)."""
-    global launches, last_fwd_plan
+    global last_fwd_plan
     _check(x_proj, h0, wh, bh)
     rows, steps, g = x_proj.shape
     hidden = g // 3
@@ -491,9 +529,8 @@ def _launch(x_proj, h0, wh, bh, reverse, plan=None):
             stream.cuda_stream,
         )
     _raise_on_error(lib, err, f"gru_fwd {plan}", "trunet_cuda_error_string")
-    launches += 1
     last_fwd_plan = plan
-    _count_path("gru_fwd", plan.path)
+    _count("gru_fwd", plan.path)
     return out, h_last
 
 
@@ -515,7 +552,7 @@ def _launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=None):
     """Launches `gru_fwd_train` on `plan` (default: `fwd_train_plan` of the
     shapes): the resident kernel of `gru_fwd.cu` or the general one of
     `gru_train.cu`."""
-    global fwd_train_launches, last_fwd_train_plan
+    global last_fwd_train_plan
     _check(x_proj, h0, wh, bh)
     rows, steps, g = x_proj.shape
     hidden = g // 3
@@ -541,9 +578,8 @@ def _launch_fwd_train(x_proj, h0, wh, bh, reverse, plan=None):
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, f"gru_fwd_train {plan}", error_string)
-    fwd_train_launches += 1
     last_fwd_train_plan = plan
-    _count_path("gru_fwd_train", plan.path)
+    _count("gru_fwd_train", plan.path)
     return out, h_last, saved
 
 
@@ -582,7 +618,7 @@ def bptt(g, g_hT, out, saved, h0, wh, reverse: bool = False):
 
 def _launch_bwd(g, g_hT, out, saved, h0, wh, reverse, plan=None):
     """Launches `gru_bwd` on `plan` (default: `bwd_plan` of the shapes)."""
-    global bwd_launches, last_bwd_plan
+    global last_bwd_plan
     _require_card(out, "gru_bwd")
     _check_bwd(g, g_hT, out, saved, h0, wh)
     rows, steps, hidden = out.shape
@@ -604,9 +640,8 @@ def _launch_bwd(g, g_hT, out, saved, h0, wh, reverse, plan=None):
         else:
             err = lib.trunet_gru_bwd(*args, int(plan.path == "registers"), stream)
     _raise_on_error(lib, err, f"gru_bwd {plan}", "trunet_gru_train_error_string")
-    bwd_launches += 1
     last_bwd_plan = plan
-    _count_path("gru_bwd", plan.path)
+    _count("gru_bwd", plan.path)
     return d_xp, dh0
 
 
@@ -620,7 +655,7 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
     """Launches `gru_dw_partial` on `plan` (default: `dw_plan` of the
     shapes). The tensor cores are built for H 64, 128, 256 and 512; the SIMT
     kernel takes any H."""
-    global dw_partial_launches, last_dw_plan
+    global last_dw_plan
     _require_card(out, "gru_dw_partial")
     rows, steps, hidden = out.shape
     _check_tensors(out, out=out, h0=h0, d_xp=d_xp, saved=saved)
@@ -651,8 +686,7 @@ def _launch_dw(out, h0, d_xp, saved, reverse, plan=None) -> torch.Tensor:
         )
     _raise_on_error(lib, err, f"gru_dw_partial {plan}", "trunet_gru_train_error_string")
     last_dw_plan = plan
-    dw_partial_launches += 1
-    _count_path("gru_dw_partial", plan.path)
+    _count("gru_dw_partial", plan.path)
     return part
 
 
@@ -667,7 +701,7 @@ def dw_sum(part: torch.Tensor, hidden: int):
 
 def _launch_sum(part, hidden, plan=None):
     """Launches `gru_dw_sum` on `plan` (default: `sum_plan` of the shapes)."""
-    global dw_sum_launches, last_sum_plan
+    global last_sum_plan
     size = 3 * hidden * (hidden + 1)
     _check_tensors(part, part=part)
     if part.dim() != 2 or part.shape[1] != size or part.shape[0] < 1:
@@ -683,9 +717,8 @@ def _launch_sum(part, hidden, plan=None):
         err = lib.trunet_gru_dw_sum(part.data_ptr(), dw.data_ptr(), splits, size, plan.cols, plan.groups,
                                     torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, f"gru_dw_sum {plan}", "trunet_gru_train_error_string")
-    dw_sum_launches += 1
     last_sum_plan = plan
-    _count_path("gru_dw_sum", "sum")
+    _count("gru_dw_sum", "sum")
     return dw[: 3 * hidden * hidden].view(hidden, 3 * hidden), dw[3 * hidden * hidden :]
 
 
