@@ -219,7 +219,14 @@ def test_zero_steps_returns_h0(card):
     assert not dwh.any() and not dbh.any()
 
 
+def _only_gru_fwd(n):
+    return {**{k: 0 for k in cuda_gru.launch_counts()}, "gru_fwd": n}
+
+
 def test_denoise_on_card_matches_cpu_with_three_launches(card):
+    """The first call of a bucket runs the body _WARMUP times eagerly and
+    captures it (3 gru_fwd a run, the captured run's counted at the replay);
+    a warmed call replays the graph: 3 gru_fwd and nothing else."""
     from tinyrecurrentunet_torch.config import load_config
     from tinyrecurrentunet_torch.infer.denoise import Denoiser
 
@@ -227,9 +234,13 @@ def test_denoise_on_card_matches_cpu_with_three_launches(card):
     artifact = os.path.join(REPO, "artifacts", "TRUNet-proc")
     clip = (0.1 * np.random.default_rng(0).standard_normal(16000)).astype(np.float32)
     den = Denoiser.from_pretrained(cfg, artifact, device="cuda")
-    cuda_gru.launches = 0
+    cuda_gru.reset_launch_counts()
+    first = den(clip)
+    assert cuda_gru.launch_counts() == _only_gru_fwd(3 * (Denoiser._WARMUP + 1))
+    cuda_gru.reset_launch_counts()
     out = den(clip)
-    assert cuda_gru.launches == 3
+    assert cuda_gru.launch_counts() == _only_gru_fwd(3)
+    np.testing.assert_array_equal(out, first)
     ref = Denoiser.from_pretrained(cfg, artifact, device="cpu")(clip)
     np.testing.assert_allclose(out, ref, rtol=0, atol=2e-4)
 
@@ -664,6 +675,7 @@ def test_bf16_denoise_on_card_against_float32(card):
     clip = procgen.mix_at_snr(clean, procgen.synth_noise(rng, 16000, 16000, "babble"), 5.0).astype(np.float32)
     den = Denoiser.from_pretrained(bf16, artifact, device="cuda")
     assert den.model.compute_dtype == torch.bfloat16
+    den(clip)  # captures the bucket's graph
     before = cuda_gru.launch_counts()
     out = den(clip)
     after = cuda_gru.launch_counts()
@@ -800,7 +812,8 @@ def test_cluster_bptt_and_tensor_core_reduction_at_large16k_widths(card, rows, s
 def test_shipped_model_denoises_on_card_as_on_cpu(card, config, artifact, path):
     """The two other shipped models with their committed weights: 1 s at the
     config's rate on the card against the CPU at 2e-4 (chip_smoke.py's
-    DENOISE_ATOL), 3 gru_fwd a call on the path the hidden sizes take."""
+    DENOISE_ATOL), 3 gru_fwd a replayed call on the path the hidden sizes
+    take (3 a run of the first call's warm-up and capture)."""
     from tinyrecurrentunet_torch.config import load_config
     from tinyrecurrentunet_torch.infer.denoise import Denoiser
 
@@ -811,8 +824,93 @@ def test_shipped_model_denoises_on_card_as_on_cpu(card, config, artifact, path):
     clip = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.random.default_rng(0).standard_normal(sr)).astype(np.float32)
     den = Denoiser.from_pretrained(cfg, directory, device="cuda")
     cuda_gru.reset_launch_counts()
+    den(clip)
+    assert cuda_gru.launch_paths() == {"gru_fwd": {path: 3 * (Denoiser._WARMUP + 1)}}
+    cuda_gru.reset_launch_counts()
     out = den(clip)
     assert cuda_gru.launch_paths() == {"gru_fwd": {path: 3}}
     ref = Denoiser.from_pretrained(cfg, directory, device="cpu")(clip)
     assert np.isfinite(out).all() and out.shape == clip.shape
     np.testing.assert_allclose(out, ref, rtol=0, atol=2e-4)
+
+
+def _padded_body(den, clip):
+    """The body `Denoiser.run`, eager, on the clip padded to its bucket."""
+    bucket = den._bucket(len(clip), den.cfg.featurizer.hop_length)
+    audio = torch.from_numpy(np.pad(clip, (0, bucket - len(clip)))).to(den.device)
+    return den.run(audio).cpu().numpy()[: len(clip)]
+
+
+@pytest.mark.parametrize("config,artifact,compute_dtype", [
+    ("proc16k", "TRUNet-proc", None),
+    ("proc16k", "TRUNet-proc", "bfloat16"),
+    ("large16k", "TRUNet-large", None),  # gru_fwd on "cluster" at T = 556 inside the capture
+    ("proc48k", "TRUNet-proc48", None),
+])
+def test_replayed_denoise_equals_the_body(card, config, artifact, compute_dtype):
+    """Two buckets called A, B, A, B (their graphs share one memory pool):
+    every replayed call against the eager body on the same padded input
+    within 1e-6 (the same kernels in the same order: 0 expected); one
+    capture a bucket."""
+    import dataclasses
+
+    from tinyrecurrentunet_torch.config import load_config
+    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+
+    cfg = load_config(os.path.join(REPO, "config", f"{config}.json"))
+    if compute_dtype:
+        cfg = dataclasses.replace(cfg, network=dataclasses.replace(cfg.network, compute_dtype=compute_dtype))
+    den = Denoiser.from_pretrained(cfg, os.path.join(REPO, "artifacts", artifact), device=card)
+    sr = cfg.featurizer.sample_rate
+    clips = [_long_audio(sr, 0), _long_audio(sr // 3, 1), _long_audio(sr - 300, 2), _long_audio(sr // 3 + 5, 3)]
+    hop = cfg.featurizer.hop_length
+    assert den._bucket(len(clips[0]), hop) == den._bucket(len(clips[2]), hop)
+    assert den._bucket(len(clips[1]), hop) == den._bucket(len(clips[3]), hop) != den._bucket(len(clips[0]), hop)
+    for clip in clips:
+        got = den(clip)
+        assert got.shape == clip.shape and np.isfinite(got).all()
+        assert float(np.abs(got - _padded_body(den, clip)).max()) <= 1e-6
+    assert den._captures == 2 and len(den._slots) == 2
+
+
+def test_denoise_captures_once_per_bucket_then_replays(card):
+    """One capture a bucket; then each call replays its bucket's graph and
+    counts its 3 gru_fwd, and nothing else; the body uncaptured
+    (`_denoise(..., replay=False)`) gives the same waveform."""
+    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    den = Denoiser(cfg, sd, device=card)
+    clips = (audio, audio[:3000])
+    for clip in clips:
+        den(clip)
+    graphs = {b: slot.graph for b, slot in den._slots.items()}
+    assert den._captures == 2 and all(g is not None for g in graphs.values())
+    cuda_gru.reset_launch_counts()
+    outs = [den(clips[i % 2]) for i in range(6)]
+    torch.cuda.synchronize()
+    assert cuda_gru.launch_counts() == _only_gru_fwd(18)
+    assert den._captures == 2 and {b: slot.graph for b, slot in den._slots.items()} == graphs
+    for i, out in enumerate(outs):
+        assert float(np.abs(out - den._denoise(clips[i % 2], replay=False)).max()) <= 1e-6
+
+
+def test_a_failure_inside_denoise_capture_propagates(card, monkeypatch):
+    """No eager fallback: a wrapper that fails while the bucket's graph is
+    captured (after the warm-up ran it eagerly) fails the call and leaves
+    no graph in the slot."""
+    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+
+    cfg, sd, audio = _tiny_streaming()
+    den = Denoiser(cfg, sd, device=card)
+    plain = cuda_gru.gru_recurrence
+
+    def failing(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced failure inside capture")
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_gru, "gru_recurrence", failing)
+    with pytest.raises(RuntimeError, match="forced failure inside capture"):
+        den(audio)
+    assert den._captures == 0 and [slot.graph for slot in den._slots.values()] == [None]

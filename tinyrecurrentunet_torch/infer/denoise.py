@@ -7,6 +7,21 @@ without a card it raises. On the card every GRU recurrence of the model
 launches a call. The CLI denoises one WAV, or walks the testing subset and
 writes `enhanced_<fileid>` files in the reference's directory layout.
 
+A call is padded up to a length bucket, as the JAX denoiser's is, and runs
+as the JAX package's jitted call runs, one program a bucket
+(`jax.jit(run)` and its compile cache): each bucket has a slot holding a
+static input and a static output, and on a card a CUDA graph of the whole
+call (featurize, TRUNet, PHM, iSTFT). The first call of a bucket warms the
+body up on a side stream (the kernels' build, cuFFT's plans, cuDNN's
+choices) and captures one run of it; every later call stages the padded
+clip into the static input through pinned host memory, replays the graph
+and copies the output out. All of a denoiser's graphs share one memory
+pool: their inputs and outputs live outside it, the replays run one at a
+time on one stream, and each output is copied out before the next replay.
+A capture or a replay that fails raises; nothing falls back to the eager
+body. On the CPU a call runs the body on the same slots. `Denoiser.run` is
+the body, eager and uncaptured.
+
 Usage:
     python -m tinyrecurrentunet_torch.infer.denoise -c config/proc16k.json \
         [--ckpt_iter max|N|pretrained] [--subset testing] \
@@ -21,6 +36,8 @@ from `train.optimization.seed`.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -32,6 +49,7 @@ from tinyrecurrentunet_torch.data.dataset import CleanNoisyPairDataset
 from tinyrecurrentunet_torch.models import TRUNet
 from tinyrecurrentunet_torch.models.blocks import init_parameters
 from tinyrecurrentunet_torch.models.phm import denoise_output_to_audio
+from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
 from tinyrecurrentunet_torch.weights import load_pretrained
@@ -48,8 +66,24 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+@dataclasses.dataclass
+class _Slot:
+    """One length bucket: its static input and output (bucket,) float32 on
+    the denoiser's device, and on a card the pinned staging buffer, the
+    CUDA graph and the kernels' launches one replay runs
+    (`cuda_gru.capture_tally`)."""
+
+    input: torch.Tensor
+    output: torch.Tensor
+    pinned: torch.Tensor | None = None
+    graph: torch.cuda.CUDAGraph | None = None
+    launches: dict | None = None
+
+
 class Denoiser:
     """Full-clip denoiser."""
+
+    _WARMUP = 3  # eager runs of the body before a bucket's capture
 
     def __init__(self, cfg: Config, state_dict: dict, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -58,6 +92,11 @@ class Denoiser:
         self.model.load_state_dict(state_dict)
         self.model.eval()
         self.featurizer = Featurizer(cfg.featurizer)
+        self._slots: dict[int, _Slot] = {}  # bucket -> slot
+        on_card = self.device.type == "cuda"
+        self._staged = torch.cuda.Event() if on_card else None  # the last copy out of a pinned buffer
+        self._pool = torch.cuda.graph_pool_handle() if on_card else None  # all of its graphs' memory pool
+        self._captures = 0
 
     @classmethod
     def from_pretrained(cls, cfg: Config, directory: str, device="cuda") -> "Denoiser":
@@ -102,12 +141,73 @@ class Denoiser:
         padding changes the last frames' features, so it is part of the
         output.
         """
-        hop = self.cfg.featurizer.hop_length
+        return self._denoise(audio)
+
+    def _denoise(self, audio: np.ndarray, replay: bool = True) -> np.ndarray:
+        """`__call__`'s work: the clip staged into its bucket's slot, the
+        body run (on a card replayed from the bucket's graph, captured at
+        the bucket's first call, or with `replay` False uncaptured, which
+        the card tests and chip_smoke.py hold and time the graph against),
+        the output copied out."""
+        audio = np.ascontiguousarray(audio, dtype=np.float32)
         length = len(audio)
-        bucket = self._bucket(length, hop)
-        audio = np.pad(np.asarray(audio, dtype=np.float32), (0, bucket - length))
-        out = self.run(torch.from_numpy(audio).to(self.device))
-        return out.cpu().numpy()[:length]
+        on_card = self.device.type == "cuda"
+        # the staging, the capture and the replay on the streams of the denoiser's card
+        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext(), torch.inference_mode():
+            slot = self._slot(self._bucket(length, self.cfg.featurizer.hop_length))
+            self._stage(slot, audio)
+            if replay and on_card:
+                if slot.graph is None:
+                    self._capture(slot)
+                slot.graph.replay()
+                cuda_gru.add_launches(slot.launches)
+            else:
+                self._run_into(slot)
+            return slot.output[:length].to("cpu", copy=True).numpy()
+
+    def _slot(self, bucket: int) -> _Slot:
+        """The bucket's slot, made at its first call."""
+        slot = self._slots.get(bucket)
+        if slot is None:
+            on_card = self.device.type == "cuda"
+            slot = _Slot(torch.zeros(bucket, device=self.device), torch.zeros(bucket, device=self.device),
+                         torch.empty(bucket, pin_memory=True) if on_card else None)
+            self._slots[bucket] = slot
+        return slot
+
+    def _stage(self, slot: _Slot, audio: np.ndarray):
+        """The clip and the zeros that pad it to the bucket into the static
+        input (all of it: a shorter clip must not read a longer one's tail);
+        on a card through the pinned buffer, without a sync."""
+        length = len(audio)
+        if slot.pinned is None:
+            slot.input[:length].copy_(torch.from_numpy(audio))
+            slot.input[length:].zero_()
+            return
+        self._staged.synchronize()  # the last call's copy has left its pinned buffer
+        slot.pinned[:length].copy_(torch.from_numpy(audio))
+        slot.pinned[length:].zero_()
+        slot.input.copy_(slot.pinned, non_blocking=True)
+        self._staged.record()
+
+    def _run_into(self, slot: _Slot):
+        """The body on the slot: its static input denoised into its static output."""
+        slot.output.copy_(self.run(slot.input))
+
+    def _capture(self, slot: _Slot):
+        """Warms the body up on a side stream, then captures one run of it
+        into the slot's CUDA graph, in the denoiser's shared memory pool."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self._WARMUP):
+                self._run_into(slot)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with cuda_gru.capture_tally() as tally, torch.cuda.graph(graph, pool=self._pool):
+            self._run_into(slot)
+        slot.graph, slot.launches = graph, tally
+        self._captures += 1
 
     @staticmethod
     def _bucket(length: int, hop: int) -> int:

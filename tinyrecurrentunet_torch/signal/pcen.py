@@ -9,9 +9,17 @@ block of 32 frames M is one product with the 32x32 lower-triangular matrix
 s (1-s)^(t-u), and the carry from block to block is one product with the
 lower-triangular matrix (1-s)^(32 (b-b')). Every power is a decay, so
 nothing overflows (the closed form with (1-s)^-t reaches 5e13 at 10 s).
+
+The decay matrices are built once per shape, dtype and device, in float64 on
+the CPU and moved once, so that a call makes no host-to-device copy and can
+be captured into a CUDA graph (the offline denoiser captures one a length
+bucket). The cache is never emptied: a captured graph holds its tensors'
+addresses.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -19,12 +27,21 @@ import torch.nn.functional as F
 _BLOCK = 32
 
 
-def _decay_matrix(n: int, base: float, scale: float, like: torch.Tensor):
+@functools.cache
+def _decay_matrix(n: int, base: float, scale: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Lower-triangular (n, n) matrix scale * base^(i-j) for j <= i, else 0."""
-    idx = torch.arange(n, dtype=torch.float64)
-    diff = idx[:, None] - idx[None, :]
-    mat = torch.where(diff >= 0, scale * base ** diff.clamp(min=0), torch.zeros(()))
-    return mat.to(dtype=like.dtype, device=like.device)
+    with torch.inference_mode(False):  # usable outside inference mode too
+        idx = torch.arange(n, dtype=torch.float64)
+        diff = idx[:, None] - idx[None, :]
+        mat = torch.where(diff >= 0, scale * base ** diff.clamp(min=0), torch.zeros(()))
+        return mat.to(dtype=dtype, device=device)
+
+
+@functools.cache
+def _decay_steps(base: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(_BLOCK,) powers base^1 .. base^_BLOCK."""
+    with torch.inference_mode(False):
+        return (base ** torch.arange(1, _BLOCK + 1, dtype=torch.float64)).to(dtype=dtype, device=device)
 
 
 def smoother(x: torch.Tensor, s: float, dim: int = -2):
@@ -34,12 +51,11 @@ def smoother(x: torch.Tensor, s: float, dim: int = -2):
     a = 1.0 - s
     nb = -(-n // _BLOCK)
     xb = F.pad(x, (0, nb * _BLOCK - n)).reshape(x.shape[:-1] + (nb, _BLOCK))
-    inblock = xb @ _decay_matrix(_BLOCK, a, s, x).T  # (..., nb, B)
+    inblock = xb @ _decay_matrix(_BLOCK, a, s, x.dtype, x.device).T  # (..., nb, B)
     ends = inblock[..., -1]  # (..., nb)
-    carries = ends @ _decay_matrix(nb, a**_BLOCK, 1.0, x).T  # M at each block end
+    carries = ends @ _decay_matrix(nb, a**_BLOCK, 1.0, x.dtype, x.device).T  # M at each block end
     prev = F.pad(carries, (1, 0))[..., :-1]  # M just before each block
-    steps = (a ** torch.arange(1, _BLOCK + 1, dtype=torch.float64)).to(x)
-    m = inblock + prev[..., None] * steps
+    m = inblock + prev[..., None] * _decay_steps(a, x.dtype, x.device)
     m = m.reshape(x.shape[:-1] + (nb * _BLOCK,))[..., :n]
     return m.movedim(-1, dim)
 
