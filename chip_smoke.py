@@ -44,10 +44,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. drive the training path: the port's `train()` on config/proc16k.json in
    float32 (train_compute_dtype cleared, nothing else changed), batch 64 of
    2 s synthetic clips, 5 steps, with the launch counts set to 0 just before
-   and read just after; check the losses, gradient norms and weights are
-   finite; one step at batch 4 on the card against the same step on the CPU,
-   each against a float64 step on its own input features; the steady-state
-   step time;
+   and read just after (the train step replayed from its CUDA graph: 12 of
+   each training kernel in the first call, 3 warm-ups and the replay, 3 in
+   each later one: 24); check the losses, gradient norms and weights are
+   finite; the replayed step against the same body uncaptured from the same
+   weights on the same batches, one step and 5 more (loss terms, grad_norm,
+   parameters after the first step; a second body run gives the body's own
+   spread), both timed (median ms by host clock and CUDA events, the
+   device's idle share, kernels a step, the first call's seconds, the graph
+   pool's bytes, peak memory) beside the card's name and power limit; one
+   step at batch 4 on the card against the same step on the CPU, each
+   against a float64 step on its own input features;
 6. drive the streaming path: `StreamingDenoiser` streams the same 4 s clip
    at one hop a call, with the launch counts set to 0 just before and read
    just after (3 gru_fwd a hop, nothing else); check it against the same
@@ -64,11 +71,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    build/trunet_host/) and one `stream_file` run, both replayed;
 7. drive the training path in bf16: `train()` on config/proc16k.json as
    shipped (train_compute_dtype bfloat16), batch 64 of 2 s clips, 5 steps
-   on phase 5's dataset and initial weights, launch counts around it (15 of
-   each training kernel, no gru_fwd); log the steady-state step (CUDA
-   events), audio-s per s, peak memory, kernels a step and device ms by
-   kind under torch.profiler (every recurrent kernel must be one of the
-   port's), the device ms of the casts at the three GRU call sites; hold the
+   on phase 5's dataset and initial weights, launch counts around it (24 of
+   each training kernel, no gru_fwd); log kernels a replayed step and device
+   ms by kind under torch.profiler (every recurrent kernel must be one of
+   the port's), the device ms of the casts at the three GRU call sites; the
+   replayed step against the body as in phase 5, both timed; hold the
    clipped gradient of one step against the float32 step on the card (batch
    64 and 4) and against the CPU's bf16 step (batch 4);
 8. score the flagship's quality on the card, float32, bf16 and the int8
@@ -80,16 +87,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    both timed;
 9. drive training as users run it: (a) `train()` on config/proc16k.json as
    shipped (bf16) on a 128-item procedural corpus and its 32-item validation
-   set, 3 steps at batch 64, launch counts around it (9 of each training
-   kernel, 3 gru_fwd for the validation pass at iteration 0), the device
-   corpus bit-equal to `dataset.get`; (b) `train()` with a profile
-   directory, 13 steps at batch 8 in float32, whose trace of steps 10-12
-   names each training kernel; (c) two ranks on this card under
+   set, 3 steps at batch 64, launch counts around it (18 of each training
+   kernel, 3 gru_fwd for the validation pass at iteration 0), its checkpoint
+   resumed into a fresh state whose replayed step is held to the continued
+   one's, the device corpus bit-equal to `dataset.get`, the replayed step
+   against the body on the corpus's batches as in phase 5; (b) `train()`
+   with a profile directory, 13 steps at batch 8 in float32, whose trace of
+   steps 10-12 (replays of the step's graph) names each training kernel;
+   (c) two ranks on this card under
    torchrun (gloo), `scripts/torch_dp_step.py`, one step at 8 clips a rank
    in float32 against the single-process card step on the same 16 clips:
    loss terms within 1e-5, grad_norm within 1e-4 relative, parameters by
    phase 5's measure, the ranks bit-equal, 3 launches of each training
-   kernel a rank, and both steps timed; (d) `export_pretrained` of (a)'s
+   kernel a rank (the data-parallel step stays eager), and both steps
+   timed; (d) `export_pretrained` of (a)'s
    checkpoint served by a card Denoiser, bit-equal to one built from (a)'s
    model (3 gru_fwd a replayed call; cuDNN's deterministic algorithms), the npz holding the
    model's parameters and statistics bit for bit; (e) `train/scaling.py` in bf16 at batch 32, 64 and 128
@@ -106,8 +117,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    frame, none in the TorchScript artifact); (d) `ops/gru_bench.py`'s five
    rows (plain version against gru_fwd, times and the largest difference of
    their outputs); (e) the kernel A/B of `train/scaling.py` at batch 64 in
-   float32, "never" launching none of the five kernels and "always" 3 of
-   each training kernel a step;
+   float32, each replayed from its graph, "never" launching none of the
+   five kernels and "always" 3 of each training kernel a step (warm-ups
+   included);
 11. the other shipped models, large16k (4.4M parameters, FGRU H 256, TGRU H
    512) and proc48k (48 kHz), with their configs and committed weights:
    (a) `Denoiser.from_pretrained` on a seeded 4 s clip at each config's
@@ -126,9 +138,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the JAX package's scores on the same files; (d) `train()` as
    shipped (bf16, batch 16) on large16k, proc48k and tbptt16k (8 s crops in
    2 s TBPTT segments), launches by path (large16k's BPTT on "cluster" and
-   its reduction on the tensor cores, 12 each), step time, audio-s per s,
-   peak memory, a profiled step (device time by kind, the GRU kernels'
-   total), and large16k's clipped gradient against float32 on the card and
+   its reduction on the tensor cores, 21 each: 4 iterations, a slot's 3
+   warm-ups; tbptt16k 33), step time, audio-s per s, peak memory, a
+   profiled step (device time by kind, the GRU kernels' total), the
+   replayed step (a TBPTT segment) against the body as in phase 5, both
+   timed, and large16k's clipped gradient against float32 on the card and
    against the CPU's bf16 step; (e) every kernel at the launch shapes only
    these models give (large16k's training shapes on the cluster forward,
    the cluster BPTT and the tensor-core reduction, timed beside the general
@@ -222,6 +236,34 @@ PARAM_ATOL = 1e-6
 PARAM_EXACT_SHARE = 0.8
 TRAIN_BATCH = 64
 TRAIN_STEPS = 5
+# The train step replayed from its CUDA graph (`train/step.py`) against the
+# same body run uncaptured (`step(..., replay=False)`) over TRAIN_GRAPH_CALLS
+# calls (one step, then 5 more), each body call from the state the graph's
+# call started from: each loss term within TRAIN_GRAPH_LOSS_RTOL and
+# grad_norm within TRAIN_GRAPH_NORM_RTOL (relative) at every call;
+# parameters after the first step by phase 5's measure (PARAM_ATOL where
+# both gradients are clear of 0 and of one sign, 2 lr(0) elsewhere). Where
+# cuDNN's backward is not bit-deterministic, as two runs of the body show,
+# graph and body run again under torch.backends.cudnn.deterministic and are
+# held to those bounds there; in cuDNN's default setting, as train() runs,
+# grad_norm is held within TRAIN_GRAPH_NORM_RTOL_NONDET, or twice the two
+# bodies' largest spread where that is larger. The flagship's float32 step
+# at batch 64 is such a step on an NVIDIA H100 80GB HBM3: its float32 weight
+# gradients differ run to run, body and graph alike, and how far grad_norm
+# spreads depends on the weights. From the initial weights it falls in two
+# clusters 3.5e-5 apart (4.57e-5 the widest spread of 64 runs), from the
+# weights 1-5 steps later 1.4e-6-1.8e-5 (32 runs each); under
+# cudnn.deterministic every run is bit-equal
+# (scripts/torch_train_nondeterminism.py). At the 4th call of one run of
+# this script, one body lay 1.10e-4 from the graph and from the other body.
+# Two bodies that agree while the graph lands apart differ by that for no
+# fault of the graph's, so the default setting's bound is 9 times the
+# widest spread seen; the deterministic setting keeps the tight bounds
+# (graph and body bit-equal there, every call).
+TRAIN_GRAPH_CALLS = 6
+TRAIN_GRAPH_LOSS_RTOL = 1e-6
+TRAIN_GRAPH_NORM_RTOL = 1e-5
+TRAIN_GRAPH_NORM_RTOL_NONDET = 1e-3
 PROFILE_PAD_S = 0.01  # idle time at each end of a torch.profiler window (device_ms)
 # Streaming (phase 6), card against CPU on the 4 s clip: as DENOISE_ATOL, the
 # FFTs' last bit carried by the unwrapped phase. N streams against single
@@ -958,9 +1000,14 @@ def float32_training(cfg):
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, optimization=opt))
 
 
-def batch_of(dataset, count: int, device):
-    items = [dataset.get(i) for i in range(count)]
+def batch_of(dataset, count: int, device, start: int = 0):
+    items = [dataset.get(i) for i in range(start, start + count)]
     return [torch.from_numpy(np.stack([x[k] for x in items])).to(device) for k in (0, 1)]
+
+
+def batches_of(dataset, batch: int, count: int) -> list:
+    """`count` batches of `batch` consecutive items of `dataset` on the card."""
+    return [tuple(batch_of(dataset, batch, "cuda", i * batch)) for i in range(count)]
 
 
 def phase_workdir(name: str) -> str:
@@ -1053,13 +1100,251 @@ def compare_train_step(cfg, dataset):
     return report
 
 
+def train_updates(calls: int) -> int:
+    """Updates the card runs over `calls` calls of one train-step slot: one
+    a call, and the capturing call's warm-up steps (3 launches of each
+    training kernel an update)."""
+    from tinyrecurrentunet_torch.utils import graphs
+
+    return calls + graphs.WARMUP
+
+
+def train_launches(calls: int) -> int:
+    return 3 * train_updates(calls)
+
+
+def train_calls(batches, seg_len: int, calls: int) -> list:
+    """The inputs of `calls` consecutive train-step calls over `batches`
+    [(clean, noisy) (B, L)] taken in turn: (clean, noisy, starts_batch); a
+    TBPTT batch gives one call a segment of seg_len samples, and its carry
+    starts from zeros."""
+    out, b = [], 0
+    while len(out) < calls:
+        clean, noisy = batches[b % len(batches)]
+        if seg_len:
+            for s in range(clean.shape[-1] // seg_len):
+                sl = slice(s * seg_len, (s + 1) * seg_len)
+                out.append((clean[:, sl], noisy[:, sl], s == 0))
+        else:
+            out.append((clean, noisy, True))
+        b += 1
+    return out[:calls]
+
+
+def state_vectors(state) -> dict:
+    """Gradients, parameters and buffers of the state's model, each one
+    float64 vector on the host."""
+    model = state.model
+    return {"grads": torch.cat([p.grad.reshape(-1).double().cpu() for p in model.parameters()]),
+            "params": torch.cat([p.detach().reshape(-1).double().cpu() for p in model.parameters()]),
+            "stats": torch.cat([b.reshape(-1).double().cpu() for b in model.buffers()])}
+
+
+def train_state_copy(state, carry) -> dict:
+    """The train state as a step reads it, copied to the host: the model's
+    parameters and buffers, the optimizer's state, the update count and the
+    TBPTT carry the next call is given."""
+    model, opt = state.model, state.optimizer
+    return {"model": [t.detach().cpu().clone() for t in (*model.parameters(), *model.buffers())],
+            "optimizer": [{k: v.cpu().clone() for k, v in opt.state[p].items()} if p in opt.state else None
+                          for p in model.parameters()],
+            "step": state.step, "carry": None if carry is None else carry.cpu().clone()}
+
+
+@torch.no_grad()
+def load_train_state(state, copy: dict):
+    """`train_state_copy` written back into `state` in place (the step's
+    slots keep their addresses)."""
+    model, opt = state.model, state.optimizer
+    for t, v in zip((*model.parameters(), *model.buffers()), copy["model"]):
+        t.copy_(v)
+    for p, saved in zip(model.parameters(), copy["optimizer"]):
+        if (saved is None) != (p not in opt.state):
+            raise AssertionError("the optimizer's state is not the copy's")
+        for k, v in (saved or {}).items():
+            opt.state[p][k].copy_(v)
+    state.step = copy["step"]
+
+
+def train_run(cfg, state, calls: list, seg_len: int, copies: list | None = None, profiled: bool = True) -> dict:
+    """`calls` through one make_train_step on `state`: without `copies`
+    replayed from the step's CUDA graph, the carry passed on from call to
+    call, the state before each call copied to the host; with them as the
+    uncaptured body, each call from the copy of the graph's state before
+    it (`load_train_state`; the carry a foreign one), so that every call is
+    one step from the state the graph's call started from. Each call's
+    metrics, host-clock and CUDA-event ms of the step alone (synchronised),
+    the state after the first call; then, where `profiled`, kernels, copies
+    and device busy ms a call of 2 more calls of the last input under
+    torch.profiler (`hop_profile`); peak memory; for the graph the pool's
+    bytes and the reserve around the capture."""
+    from tinyrecurrentunet_torch.train.step import make_train_step
+    from tinyrecurrentunet_torch.utils import graphs
+
+    replay = copies is None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, with_carry=seg_len > 0)
+    carry, rows, first, made = None, [], None, []
+    for i, (clean, noisy, starts) in enumerate(calls):
+        if replay:
+            if seg_len and starts:
+                carry = step.buffers(state, tuple(clean.shape), clean.dtype).carry.zero_()
+            made.append(train_state_copy(state, carry))
+        else:
+            load_train_state(state, copies[i])
+            carry = None if copies[i]["carry"] is None else copies[i]["carry"].cuda()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = step(state, clean, noisy, *([carry] if seg_len else []), replay=replay)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        carry = out[2] if seg_len else None
+        rows.append({"metrics": {k: float(v) for k, v in out[1].items()}, "host_ms": host_ms,
+                     "event_ms": start.elapsed_time(end)})
+        if i == 0:
+            first = state_vectors(state)
+    run = {"first_call_s": rows[0]["host_ms"] / 1e3,
+           "median_ms_host_clock": float(np.median([r["host_ms"] for r in rows[1:]])),
+           "median_ms_cuda_events": float(np.median([r["event_ms"] for r in rows[1:]])),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "captures": step.captures, "slots": len(step._slots)}
+    if profiled:
+        last = (calls[-1][0], calls[-1][1], *([carry] if seg_len else []))
+        prof = hop_profile(lambda: step(state, *last, replay=replay), 2)
+        run.update({"kernels_a_step": prof["kernels"], "copies_a_step": prof["copies"],
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "device_idle_share": 1.0 - prof["device_busy_ms"] / run["median_ms_host_clock"]})
+    if replay:
+        memory = next(iter(step._slots.values())).memory
+        pool = graphs.pool_bytes(step._pool)
+        # the reserve had the warm-up's cached blocks not been freed before
+        # the capture: what the general pool held then, plus the graph's pool
+        run.update({"graph_pool_bytes": pool, "capture_memory": memory,
+                    "reserved_without_empty_cache_gb": (memory["reserved_after_warmup"] + (pool or 0)) / 1e9})
+    return {"summary": run, "calls": rows, "first": first, "copies": made}
+
+
+def train_graph_vs_body(tag: str, cfg, make_state, batches, seg_len: int = 0,
+                        calls: int = TRAIN_GRAPH_CALLS) -> dict:
+    """The train step replayed from its CUDA graph over `calls` calls
+    (`train_calls`) from `make_state()`, then the same body uncaptured,
+    twice, each call from the state the graph's call started from
+    (`train_run`): graph against body at every call, body against body for
+    the body's own spread. Held: each loss term within TRAIN_GRAPH_LOSS_RTOL
+    and grad_norm within TRAIN_GRAPH_NORM_RTOL (relative), or within twice
+    the bodies' largest spread over the calls where that is larger; the
+    parameters after the first step by phase 5's measure (as phase 9 (c)
+    takes it at batch 64: the share of entries both runs move by lr sign(g)
+    at least DP_SIGN_AGREEMENT of those whose gradient is clear of 0). Where
+    the two bodies differ (cuDNN's float32 weight gradients are not
+    bit-deterministic run to run), grad_norm is held within
+    TRAIN_GRAPH_NORM_RTOL_NONDET instead, and graph and body run once more
+    under torch.backends.cudnn.deterministic, unprofiled, where they are held
+    to TRAIN_GRAPH_LOSS_RTOL and TRAIN_GRAPH_NORM_RTOL with no spread
+    allowed, and the parameters as above. The default setting's runs are
+    timed (`train_run`) beside the card's name and power limit. The runs go
+    one after another, each from an emptied allocator cache: a graph's pool
+    beside a body's working set would not fit at the flagship's float32
+    batch."""
+    from tinyrecurrentunet_torch.train.state import make_schedule
+
+    inputs = train_calls(batches, seg_len, calls)
+    lr0 = make_schedule(cfg)(0)
+
+    def run_pair(names, profiled=True):
+        for name in names:
+            state = make_state()
+            runs[name] = train_run(cfg, state, inputs, seg_len,
+                                   None if name.startswith("graph") else runs[names[0]]["copies"], profiled)
+            del state
+            torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def per_call(run, ref):
+        return [{"loss": max(rel(c["metrics"][k], r["metrics"][k]) for k in r["metrics"] if k != "grad_norm"),
+                 "grad_norm": rel(c["metrics"]["grad_norm"], r["metrics"]["grad_norm"])}
+                for c, r in zip(run["calls"], ref["calls"])]
+
+    def first_step(graph, body) -> dict:
+        g, b = graph["first"], body["first"]
+        clear = b["grads"].abs() >= ADAM_SIGN_TAU
+        exact = (torch.minimum(g["grads"].abs(), b["grads"].abs()) >= ADAM_SIGN_TAU) & (
+            g["grads"].sign() == b["grads"].sign())
+        param_err = (g["params"] - b["params"]).abs()
+        return {"param_exact_share": exact.double().mean().item(), "clear_share": clear.double().mean().item(),
+                "param_max_abs_err_exact": param_err[exact].max().item() if exact.any() else 0.0,
+                "param_max_abs_err": param_err.max().item(),
+                "bn_stats_max_abs_err": (g["stats"] - b["stats"]).abs().max().item()}
+
+    def hold(setting, got, bound, params, graph_run):
+        for i, err in enumerate(got):
+            for k in ("loss", "grad_norm"):
+                if not err[k] <= bound[k]:
+                    raise AssertionError(f"{tag} {setting} call {i}: {k} graph vs body {err[k]:.3e} > "
+                                         f"{bound[k]:.3e} (report above)")
+        exact_floor = min(PARAM_EXACT_SHARE, DP_SIGN_AGREEMENT * params["clear_share"])
+        if not (params["param_exact_share"] >= exact_floor and params["param_max_abs_err_exact"] <= PARAM_ATOL
+                and params["param_max_abs_err"] <= 2 * lr0 + PARAM_ATOL):
+            raise AssertionError(f"{tag} {setting} graph vs body, parameters after the first step: {params}")
+        summary = graph_run["summary"]
+        if summary["captures"] != 1 or summary["slots"] != 1:
+            raise AssertionError(f"{tag} {setting}: the graph run captured {summary['captures']} times "
+                                 f"in {summary['slots']} slots")
+
+    runs = {}
+    run_pair(("graph", "body", "body_again"))
+    got, spread = per_call(runs["graph"], runs["body"]), per_call(runs["body_again"], runs["body"])
+    nondeterministic = (any(sp[k] > 0 for sp in spread for k in sp)
+                        or not torch.equal(runs["body"]["first"]["grads"], runs["body_again"]["first"]["grads"]))
+    norm_rtol = TRAIN_GRAPH_NORM_RTOL_NONDET if nondeterministic else TRAIN_GRAPH_NORM_RTOL
+    bound = {k: max(rtol, 2 * max(sp[k] for sp in spread))
+             for k, rtol in (("loss", TRAIN_GRAPH_LOSS_RTOL), ("grad_norm", norm_rtol))}
+    report = {
+        "calls": calls, "segment_samples": seg_len, "cudnn_nondeterministic": nondeterministic,
+        "graph_vs_body": got, "body_vs_body": spread, "bound": bound, **first_step(runs["graph"], runs["body"]),
+        "lr0": lr0, "graph": runs["graph"]["summary"], "body": runs["body"]["summary"],
+        "body_again": runs["body_again"]["summary"], "device": nvidia_smi_line(),
+    }
+    if nondeterministic:
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            run_pair(("graph_deterministic", "body_deterministic"), profiled=False)
+        finally:
+            torch.backends.cudnn.deterministic = before
+        graph, body = runs["graph_deterministic"], runs["body_deterministic"]
+        report["cudnn_deterministic"] = {
+            "graph_vs_body": per_call(graph, body),
+            "bound": {"loss": TRAIN_GRAPH_LOSS_RTOL, "grad_norm": TRAIN_GRAPH_NORM_RTOL},
+            "bit_equal_grads_first_step": torch.equal(graph["first"]["grads"], body["first"]["grads"]),
+            **first_step(graph, body), "captures": graph["summary"]["captures"],
+        }
+    log(f"{tag} graph vs body: {json.dumps(report)}")
+    hold("cuDNN default", got, bound, report, runs["graph"])
+    if runs["body"]["summary"]["captures"] != 0:
+        raise AssertionError(f"{tag}: the body run captured")
+    if nondeterministic:
+        det = report["cudnn_deterministic"]
+        hold("cudnn.deterministic", det["graph_vs_body"], det["bound"], det, runs["graph_deterministic"])
+    return report
+
+
 def train_main_path(cfg, cuda_gru):
     """Phase 5: the port's train() for TRAIN_STEPS steps at the config's
-    batch, launch counts around it; then the card-vs-CPU step and the
-    steady-state step time."""
+    batch, launch counts around it; then the replayed step against the
+    uncaptured body, both timed (`train_graph_vs_body`), and the card-vs-CPU
+    step."""
     from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset
     from tinyrecurrentunet_torch.train.loop import train
-    from tinyrecurrentunet_torch.train.step import make_train_step
+    from tinyrecurrentunet_torch.train.state import create_train_state
 
     opt = cfg.train.optimization
     if opt.batch_size_per_device != TRAIN_BATCH or cfg.trainset.crop_length_sec != 2:
@@ -1087,34 +1372,31 @@ def train_main_path(cfg, cuda_gru):
         f"step {TRAIN_STEPS - 1} loss {metrics['loss']:.6f} grad_norm {metrics['grad_norm']:.4f}")
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("train() on the card left TF32 on")
-    expected = {k: 3 * TRAIN_STEPS for k in counts}
+    # a slot's first call: 3 warm-up steps and the replay of its capture
+    expected = {k: train_launches(TRAIN_STEPS) for k in counts}
     expected["gru_fwd"] = 0  # train mode never runs the inference kernel
     if counts != expected:
         raise AssertionError(f"launches in {TRAIN_STEPS} train steps: {counts}, expected {expected}")
     logged = [first["Train/Train-Loss"], first["Train/Gradient-Norm"], metrics["loss"], metrics["grad_norm"]]
     if not (np.isfinite(logged).all() and all(bool(torch.isfinite(p).all()) for p in state.model.parameters())):
         raise AssertionError(f"training produced non-finite values: {logged}")
+    del state
 
-    # steady state: further steps from the trained state on one batch
-    step = make_train_step(cfg)
-    clean, noisy = batch_of(dataset, TRAIN_BATCH, "cuda")
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_ms(lambda: step(state, clean, noisy), 5, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        step(state, clean, noisy)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    # the replayed step against the uncaptured body from the initial weights,
+    # both timed
+    report = train_graph_vs_body("[train]", cfg, lambda: create_train_state(cfg, device="cuda"),
+                                 batches_of(dataset, TRAIN_BATCH, 2))
+    graph = report["graph"]
     audio_s = TRAIN_BATCH * cfg.trainset.crop_length_sec
     summary = {
         "main_path": "train() proc16k float32", "batch": TRAIN_BATCH, "clip_s": cfg.trainset.crop_length_sec,
-        "steps": TRAIN_STEPS, "train_s": train_s, "step_ms_cuda_events": step_ms,
-        "step_ms_host_clock": host_ms, "audio_s_per_s": audio_s / (step_ms / 1e3),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
-        "final_loss": metrics["loss"], "final_grad_norm": metrics["grad_norm"],
+        "steps": TRAIN_STEPS, "train_s": train_s, "step_ms_cuda_events": graph["median_ms_cuda_events"],
+        "step_ms_host_clock": graph["median_ms_host_clock"],
+        "audio_s_per_s": audio_s / (graph["median_ms_host_clock"] / 1e3),
+        "peak_mem_gb": graph["peak_mem_gb"], "launches": counts,
+        "final_loss": metrics["loss"], "final_grad_norm": metrics["grad_norm"], "graph_vs_body": report,
     }
-    log(json.dumps(summary))
+    log(json.dumps({k: v for k, v in summary.items() if k != "graph_vs_body"}))
     summary["card_vs_cpu"] = compare_train_step(cfg, dataset)
     return summary, counts
 
@@ -1230,29 +1512,26 @@ def offline_calls(den, clip: np.ndarray, replay: bool, calls: int) -> tuple[dict
 
 def graph_pool_bytes(den) -> dict:
     """Bytes the card reserves in the segments of `den`'s shared graph pool
-    (torch.cuda.memory_snapshot; None where the snapshot names no pools)
-    and in all (torch.cuda.memory_reserved)."""
-    segments = torch.cuda.memory_snapshot()
-    pool = None
-    if den._pool is not None and any("segment_pool_id" in seg for seg in segments):
-        pool = sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == tuple(den._pool))
-    return {"pool_reserved_bytes": pool, "card_reserved_bytes": torch.cuda.memory_reserved()}
+    (`utils.graphs.pool_bytes`) and in all (torch.cuda.memory_reserved)."""
+    from tinyrecurrentunet_torch.utils import graphs
+
+    return {"pool_reserved_bytes": graphs.pool_bytes(den._pool), "card_reserved_bytes": torch.cuda.memory_reserved()}
 
 
 def serve_offline(name: str, cfg, artifact: str, den, clip: np.ndarray, path: str, calls: int, cuda_gru,
                   tag: str) -> dict:
     """The offline Denoiser `den` on `clip`, the launch counts set to 0 just
     before each call and read just after: the bucket's first call (the body
-    warmed up _WARMUP times and captured, 3 gru_fwd a run, on `path`; its
+    warmed up graphs.WARMUP times and captured, 3 gru_fwd a run, on `path`; its
     seconds) and a replayed call (3 gru_fwd on `path`, nothing else). The
     replayed output and the uncaptured body's each held against the same
     Denoiser in float64 on the CPU (DENOISE_ATOL) and against each other
     (GRAPH_ATOL), the same for the clip led by digital silence; `calls`
     calls of each timed (`offline_calls`) beside the card's name and power
     limit."""
-    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+    from tinyrecurrentunet_torch.utils import graphs
 
-    runs = Denoiser._WARMUP + 1
+    runs = graphs.WARMUP + 1
     torch.cuda.synchronize()
     cuda_gru.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1572,11 +1851,14 @@ def bf16_training_path(cfg, f32_cfg, cuda_gru) -> dict:
     """Phase 7: the port's train() on config/proc16k.json as shipped
     (train_compute_dtype bfloat16) for TRAIN_STEPS steps at the config's
     batch, on phase 5's dataset and initial weights, launch counts around
-    it; then the steady-state step, a profiled step, the casts at the GRU
-    call sites, and the clipped gradients of one step against the float32
-    step on the card (batch 64) and against the CPU's bf16 step (batch 4)."""
+    it; then a profiled replayed step, the casts at the GRU call sites, the
+    replayed step against the uncaptured body, both timed
+    (`train_graph_vs_body`), and the clipped gradients of one step against
+    the float32 step on the card (batch 64) and against the CPU's bf16 step
+    (batch 4)."""
     from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset
     from tinyrecurrentunet_torch.train.loop import train
+    from tinyrecurrentunet_torch.train.state import create_train_state
     from tinyrecurrentunet_torch.train.step import make_train_step
 
     if cfg.train.optimization.train_compute_dtype != "bfloat16":
@@ -1597,7 +1879,7 @@ def bf16_training_path(cfg, f32_cfg, cuda_gru) -> dict:
         os.chdir(cwd)
     log(f"[train-bf16] {TRAIN_STEPS} steps through train(): {train_s:.2f} s, launches {counts}, "
         f"last loss {metrics['loss']:.6f} grad_norm {metrics['grad_norm']:.4f}")
-    expected = {k: 3 * TRAIN_STEPS for k in counts}
+    expected = {k: train_launches(TRAIN_STEPS) for k in counts}
     expected["gru_fwd"] = 0
     if counts != expected:
         raise AssertionError(f"launches in {TRAIN_STEPS} bf16 train steps: {counts}, expected {expected}")
@@ -1607,20 +1889,11 @@ def bf16_training_path(cfg, f32_cfg, cuda_gru) -> dict:
                                                                for p in state.model.parameters())):
         raise AssertionError(f"bf16 training produced non-finite values: {metrics}")
 
+    # the replayed step of the trained state under torch.profiler: every
+    # recurrent kernel of a replay the port's
     step = make_train_step(cfg)
     clean, noisy = batch_of(dataset, TRAIN_BATCH, "cuda")
     step(state, clean, noisy)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_ms(lambda: step(state, clean, noisy), 5, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        step(state, clean, noisy)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 3 * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[train-bf16] step {step_ms:.2f} ms by CUDA events, {host_ms:.2f} ms host clock, peak {peak_gb:.2f} GB")
     train_frames = crop_frames(cfg)
     fb = state.model.bottleneck_freqs(cfg.featurizer.num_freqs)
     net = cfg.network
@@ -1629,16 +1902,21 @@ def bf16_training_path(cfg, f32_cfg, cuda_gru) -> dict:
                            ("tgru", TRAIN_BATCH * fb, train_frames, net.tgru_hidden)])
     log(f"[train-bf16] casts at the GRU call sites: {json.dumps(casts)}")
     prof = profile_port_step(step, state, clean, noisy, 1, "[train-bf16]")
+    del step, state
+    torch.cuda.empty_cache()
+    report = train_graph_vs_body("[train-bf16]", cfg, lambda: create_train_state(cfg, device="cuda"),
+                                 batches_of(dataset, TRAIN_BATCH, 2))
+    graph = report["graph"]
     audio_s = TRAIN_BATCH * cfg.trainset.crop_length_sec
     summary = {
         "main_path": "train() proc16k bfloat16 as shipped", "batch": TRAIN_BATCH,
         "clip_s": cfg.trainset.crop_length_sec, "steps": TRAIN_STEPS, "train_s": train_s,
-        "step_ms_cuda_events": step_ms, "step_ms_host_clock": host_ms,
-        "audio_s_per_s": audio_s / (step_ms / 1e3), "peak_mem_gb": peak_gb, "launches": counts,
-        "profile": prof, "gru_edge_casts": casts, "final_loss": metrics["loss"],
+        "step_ms_cuda_events": graph["median_ms_cuda_events"], "step_ms_host_clock": graph["median_ms_host_clock"],
+        "audio_s_per_s": audio_s / (graph["median_ms_host_clock"] / 1e3), "peak_mem_gb": graph["peak_mem_gb"],
+        "launches": counts, "profile": prof, "gru_edge_casts": casts, "final_loss": metrics["loss"],
+        "graph_vs_body": report,
     }
-    log(json.dumps(summary))
-    del state
+    log(json.dumps({k: v for k, v in summary.items() if k != "graph_vs_body"}))
     torch.cuda.empty_cache()
 
     # the clipped gradient of one step from the initial weights: bf16 against
@@ -1739,13 +2017,18 @@ def quality_path(cfg) -> dict:
 def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
     """Phase 9 (a) and (d): train() on config/proc16k.json as shipped (bf16)
     on a PROC_ITEMS-item procedural corpus and its 32-item validation set,
-    PROC_STEPS steps at batch 64, launch counts around it; the device corpus
-    against dataset.get; then export_pretrained on its checkpoint, served by
-    a card Denoiser beside one built from the trained model."""
+    PROC_STEPS steps at batch 64, launch counts around it; its checkpoint
+    resumed into a fresh state, whose replayed step is held to the
+    continued one's (`resumed_step`); the device corpus against
+    dataset.get; the replayed step against the uncaptured body on the
+    corpus's batches (`train_graph_vs_body`); then export_pretrained on its
+    checkpoint, served by a card Denoiser beside one built from the trained
+    model."""
     from tinyrecurrentunet_torch.data import ProceduralSpeechDataset
     from tinyrecurrentunet_torch.infer.denoise import Denoiser
     from tinyrecurrentunet_torch.train import export_pretrained
     from tinyrecurrentunet_torch.train.loop import train, upload_corpus
+    from tinyrecurrentunet_torch.train.state import create_train_state
     from tinyrecurrentunet_torch.weights import load_pretrained
 
     length = cfg.trainset.crop_length_sec
@@ -1768,6 +2051,7 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
         # iteration 0 is the logged one (iters_per_valid 500), with the validation loss
         with open(os.path.join(workdir, "ckpt", cfg.train.exp_path, "logs", "metrics.jsonl")) as f:
             first = json.loads(f.readline())
+        resumed = resumed_step(cfg, state, batch_of(dataset, cfg.train.optimization.batch_size_per_device, "cuda"))
     finally:
         os.chdir(cwd)
     log(f"[proc-train] {PROC_STEPS} steps of train() on {PROC_ITEMS} procedural items, bf16, batch "
@@ -1776,7 +2060,7 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
     # 3 launches of each training kernel a step; the validation pass at
     # iteration 0 (iters_per_valid divides 0) runs in eval mode under no_grad:
     # 3 gru_fwd
-    expected = {k: 3 * PROC_STEPS for k in counts}
+    expected = {k: train_launches(PROC_STEPS) for k in counts}
     expected["gru_fwd"] = 3
     if counts != expected:
         raise AssertionError(f"launches in {PROC_STEPS} procedural train steps: {counts}, expected {expected}")
@@ -1790,7 +2074,11 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
         for k in (0, 1):
             if not np.array_equal(corpus[k][i].cpu().numpy(), dataset.get(i)[k]):
                 raise AssertionError(f"device corpus item {i} differs from dataset.get")
-    del corpus
+    batch = cfg.train.optimization.batch_size_per_device
+    corpus_batches = [(corpus[0][i * batch:(i + 1) * batch], corpus[1][i * batch:(i + 1) * batch]) for i in range(2)]
+    graph_vs_body = train_graph_vs_body("[proc-train]", cfg, lambda: create_train_state(cfg, device="cuda"),
+                                        corpus_batches)
+    del corpus, corpus_batches
 
     trained = state.model.state_dict()
     loaded = load_pretrained(export_dir, cfg)  # checks the artifact meta
@@ -1820,10 +2108,68 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
         raise AssertionError("the exported weights do not serve the trained model's waveform bit for bit")
     summary = {"items": PROC_ITEMS, "steps": PROC_STEPS, "train_s": train_s, "phase_s": time.perf_counter() - t0,
                "launches": counts, "metrics": metrics, "valid_loss_iteration_0": first["Valid/Valid-Loss"],
-               "export_launches": export_counts}
+               "export_launches": export_counts, "resumed_vs_continued": resumed, "graph_vs_body": graph_vs_body}
     del state
     torch.cuda.empty_cache()
     return summary, counts
+
+
+def resumed_step(cfg, state, batch) -> dict:
+    """The latest checkpoint of the run whose trained `state` is given,
+    restored into a fresh state (in the run's directory: the config's log
+    directory is relative): one replayed step of each on `batch`, and the
+    continued state's step once more from the same state for the step's own
+    spread; held as `train_graph_vs_body` holds the graph to the body in
+    cuDNN's default setting (the same tolerances, the parameters by phase
+    5's measure). One step after
+    the other, so that one graph pool at a time holds the step's working
+    set; the trained state is put back as it was after."""
+    from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
+    from tinyrecurrentunet_torch.train.state import create_train_state, make_schedule
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    fresh = create_train_state(cfg, device="cuda")
+    fresh, iteration, _ = CheckpointManager(cfg.train.log.directory, cfg.train.exp_path).restore(fresh)
+    if fresh.step != state.step:
+        raise AssertionError(f"the checkpoint of iteration {iteration} holds {fresh.step} updates, not {state.step}")
+    before, updates = train_state_copy(state, None), fresh.step
+    runs = []
+    for st in (fresh, state, state):
+        if st is state:
+            load_train_state(state, before)
+        _, metrics = make_train_step(cfg)(st, *batch)
+        runs.append(({k: float(v) for k, v in metrics.items()}, state_vectors(st)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    load_train_state(state, before)  # the trained state, as its checkpoint and export hold it
+
+    def rel(a, b):
+        return {"loss": max(abs(a[k] - b[k]) / abs(b[k]) for k in b if k != "grad_norm"),
+                "grad_norm": abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]}
+
+    (m, v), (m_ref, v_ref), (m_again, v_again) = runs
+    got, spread = rel(m, m_ref), rel(m_again, m_ref)
+    nondeterministic = (spread["loss"] > 0 or spread["grad_norm"] > 0
+                        or not torch.equal(v_ref["grads"], v_again["grads"]))
+    clear = v_ref["grads"].abs() >= ADAM_SIGN_TAU
+    exact = (torch.minimum(v["grads"].abs(), v_ref["grads"].abs()) >= ADAM_SIGN_TAU) & (
+        v["grads"].sign() == v_ref["grads"].sign())
+    lr = make_schedule(cfg)(state.step - 1)
+    report = {"iteration": iteration, "updates": updates, "resumed_vs_continued": got,
+              "continued_vs_continued": spread, "cudnn_nondeterministic": nondeterministic,
+              "param_exact_share": exact.double().mean().item(), "clear_share": clear.double().mean().item(),
+              "param_max_abs_err_exact": (v["params"] - v_ref["params"]).abs()[exact].max().item(),
+              "param_max_abs_err": (v["params"] - v_ref["params"]).abs().max().item(), "lr": lr}
+    log(f"[proc-train] the checkpoint resumed into a fresh state, its replayed step vs the continued one: "
+        f"{json.dumps(report)}")
+    ok = (got["loss"] <= max(TRAIN_GRAPH_LOSS_RTOL, 2 * spread["loss"])
+          and got["grad_norm"] <= max(TRAIN_GRAPH_NORM_RTOL_NONDET if nondeterministic else TRAIN_GRAPH_NORM_RTOL,
+                                      2 * spread["grad_norm"])
+          and report["param_exact_share"] >= min(PARAM_EXACT_SHARE, DP_SIGN_AGREEMENT * report["clear_share"])
+          and report["param_max_abs_err_exact"] <= PARAM_ATOL and report["param_max_abs_err"] <= 2 * lr + PARAM_ATOL)
+    if not ok:
+        raise AssertionError(f"resumed vs continued step: {report}")
+    return report
 
 
 def profiled_training(f32_cfg) -> dict:
@@ -2292,14 +2638,18 @@ def shipped_training(name, cfg, steps: int, cuda_gru) -> dict:
     """Phase 11 (d): `train()` on the shipped config `name` as shipped (bf16,
     its batch, its crop, TBPTT segments where it sets them) on synthetic
     clips for `steps` iterations, launch counts and paths around it (3 of
-    each training kernel an update, none of gru_fwd); then finite losses and
-    weights, the steady-state iteration by CUDA events, audio-s per s, peak
-    memory and a profiled iteration (every recurrent kernel the port's). For
+    each training kernel an update, the capturing call's warm-ups included,
+    none of gru_fwd); then finite losses and weights, the steady-state
+    iteration by CUDA events, audio-s per s, peak memory and a profiled
+    iteration (every recurrent kernel the port's), all replayed; the
+    replayed step (a TBPTT segment) against the uncaptured body, both timed
+    (`train_graph_vs_body`). For
     large16k also the clipped gradient of one step from the initial weights:
     bf16 against float32 on the card at its batch, and the card's bf16
     against the CPU's at batch 4 x 2 s, by phase 7's measure and bounds."""
     from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset
     from tinyrecurrentunet_torch.train.loop import train
+    from tinyrecurrentunet_torch.train.state import create_train_state
     from tinyrecurrentunet_torch.train.step import make_train_step
 
     opt = cfg.train.optimization
@@ -2324,8 +2674,8 @@ def shipped_training(name, cfg, steps: int, cuda_gru) -> dict:
         os.chdir(cwd)
     log(f"[shipped] train {name}: {steps} iterations of train() ({segments} updates each): {train_s:.2f} s, "
         f"launches {counts}, by path {paths}, last loss {metrics['loss']:.6f} grad_norm {metrics['grad_norm']:.4f}")
-    expected = {**{k: 3 * segments * steps for k in counts}, "gru_fwd": 0}
-    want_paths = expected_train_paths(cfg, segments * steps)
+    expected = {**{k: train_launches(segments * steps) for k in counts}, "gru_fwd": 0}
+    want_paths = expected_train_paths(cfg, train_updates(segments * steps))
     if counts != expected or paths != want_paths:
         raise AssertionError(f"{name} training: launches {counts}, by path {paths}; expected {expected}, {want_paths}")
     if not (np.isfinite(list(metrics.values())).all()
@@ -2352,16 +2702,20 @@ def shipped_training(name, cfg, steps: int, cuda_gru) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = profile_port_step(iteration, state, clean, noisy, segments, f"[shipped] train {name}")
     gru_ms = prof["device_ms_by_kind"].get("gru_kernels", 0.0)
-    log(f"[shipped] train {name}: iteration {iter_ms:.2f} ms (CUDA events), device {prof['device_ms']:.2f} ms "
-        f"of which the GRU kernels {gru_ms:.2f} ms, by kind {json.dumps(prof['device_ms_by_kind'])}")
+    log(f"[shipped] train {name}: iteration {iter_ms:.2f} ms (CUDA events, replayed), device {prof['device_ms']:.2f} "
+        f"ms of which the GRU kernels {gru_ms:.2f} ms, by kind {json.dumps(prof['device_ms_by_kind'])}")
+    del step, state
+    torch.cuda.empty_cache()
+    report = train_graph_vs_body(f"[shipped] train {name}", cfg, lambda: create_train_state(cfg, device="cuda"),
+                                 batches_of(dataset, batch, 2), seg_len)
     summary = {
         "model": name, "batch": batch, "crop_s": crop, "sample_rate": sample_rate, "segments": segments,
         "iterations": steps, "train_s": train_s, "iteration_ms_cuda_events": iter_ms,
         "audio_s_per_s": batch * crop / (iter_ms / 1e3), "peak_mem_gb": peak_gb, "launches": counts,
         "paths": paths, "final_loss": metrics["loss"], "profile": prof, "gru_kernels_device_ms": gru_ms,
+        "graph_vs_body": report,
     }
-    log(f"[shipped] train {name} {json.dumps({k: v for k, v in summary.items() if k != 'profile'})}")
-    del state
+    log(f"[shipped] train {name} {json.dumps({k: v for k, v in summary.items() if k not in ('profile', 'graph_vs_body')})}")
     torch.cuda.empty_cache()
     if name == "large16k":
         f32_cfg = float32_training(cfg)
@@ -2621,7 +2975,7 @@ def main() -> int:
         "source": "tinyrecurrentunet_torch/ops/csrc/gru_fwd.cu",
         "replaces": "tinyrecurrentunet_tpu/ops/pallas_gru.py:32",
         "launches": launches,
-        # the bucket's first call: _WARMUP eager runs of the body, then the captured one
+        # the bucket's first call: graphs.WARMUP eager runs of the body, then the captured one
         "capture_call_launches": sum(serving["capture_launches"]["gru_fwd"].values()),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in main_rows),

@@ -22,6 +22,7 @@ import torch
 
 from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.ops import gru as gru_ops
+from tinyrecurrentunet_torch.utils import graphs
 
 torch.set_num_threads(2)  # beside JAX's pools under several test workers
 
@@ -224,7 +225,7 @@ def _only_gru_fwd(n):
 
 
 def test_denoise_on_card_matches_cpu_with_three_launches(card):
-    """The first call of a bucket runs the body _WARMUP times eagerly and
+    """The first call of a bucket runs the body graphs.WARMUP times eagerly and
     captures it (3 gru_fwd a run, the captured run's counted at the replay);
     a warmed call replays the graph: 3 gru_fwd and nothing else."""
     from tinyrecurrentunet_torch.config import load_config
@@ -236,7 +237,7 @@ def test_denoise_on_card_matches_cpu_with_three_launches(card):
     den = Denoiser.from_pretrained(cfg, artifact, device="cuda")
     cuda_gru.reset_launch_counts()
     first = den(clip)
-    assert cuda_gru.launch_counts() == _only_gru_fwd(3 * (Denoiser._WARMUP + 1))
+    assert cuda_gru.launch_counts() == _only_gru_fwd(3 * (graphs.WARMUP + 1))
     cuda_gru.reset_launch_counts()
     out = den(clip)
     assert cuda_gru.launch_counts() == _only_gru_fwd(3)
@@ -825,7 +826,7 @@ def test_shipped_model_denoises_on_card_as_on_cpu(card, config, artifact, path):
     den = Denoiser.from_pretrained(cfg, directory, device="cuda")
     cuda_gru.reset_launch_counts()
     den(clip)
-    assert cuda_gru.launch_paths() == {"gru_fwd": {path: 3 * (Denoiser._WARMUP + 1)}}
+    assert cuda_gru.launch_paths() == {"gru_fwd": {path: 3 * (graphs.WARMUP + 1)}}
     cuda_gru.reset_launch_counts()
     out = den(clip)
     assert cuda_gru.launch_paths() == {"gru_fwd": {path: 3}}
@@ -884,13 +885,13 @@ def test_denoise_captures_once_per_bucket_then_replays(card):
     clips = (audio, audio[:3000])
     for clip in clips:
         den(clip)
-    graphs = {b: slot.graph for b, slot in den._slots.items()}
-    assert den._captures == 2 and all(g is not None for g in graphs.values())
+    captured = {b: slot.graph for b, slot in den._slots.items()}
+    assert den._captures == 2 and all(g is not None for g in captured.values())
     cuda_gru.reset_launch_counts()
     outs = [den(clips[i % 2]) for i in range(6)]
     torch.cuda.synchronize()
     assert cuda_gru.launch_counts() == _only_gru_fwd(18)
-    assert den._captures == 2 and {b: slot.graph for b, slot in den._slots.items()} == graphs
+    assert den._captures == 2 and {b: slot.graph for b, slot in den._slots.items()} == captured
     for i, out in enumerate(outs):
         assert float(np.abs(out - den._denoise(clips[i % 2], replay=False)).max()) <= 1e-6
 
@@ -914,3 +915,200 @@ def test_a_failure_inside_denoise_capture_propagates(card, monkeypatch):
     with pytest.raises(RuntimeError, match="forced failure inside capture"):
         den(audio)
     assert den._captures == 0 and [slot.graph for slot in den._slots.values()] == [None]
+
+
+# ------------------------------------------------------ the train step's graph
+# (tinyrecurrentunet_torch/train/step.py: one CUDA graph a batch shape)
+
+STEP_LOSS_RTOL = 1e-6  # each loss term, graph vs body: the same kernels on the same buffers
+STEP_NORM_RTOL = 1e-5  # grad_norm, graph vs body
+PARAM_ATOL = 1e-6  # parameters where both gradients are clear of 0 and of one sign (chip_smoke.py)
+
+
+def _tiny_training(with_carry: bool, batch: int = 4):
+    """The streaming tests' network (FGRU H 64, TGRU H 128: the kernels'
+    register paths) trained on 0.5 s clips; with the carry, in two TBPTT
+    segments of 0.25 s."""
+    import dataclasses
+
+    from tinyrecurrentunet_torch.config import OptimizationConfig, TrainConfig, TrainsetConfig
+    from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset
+
+    cfg, _, _ = _tiny_streaming()
+    cfg = dataclasses.replace(
+        cfg, trainset=TrainsetConfig(sample_rate=16000, crop_length_sec=0.5),
+        train=TrainConfig(optimization=OptimizationConfig(batch_size_per_device=batch, n_iters=100,
+                                                          tbptt_segment_sec=0.25 if with_carry else 0.0)))
+    ds = SyntheticPairDataset(num_items=batch, length_sec=0.5, sample_rate=16000)
+    items = [ds.get(i) for i in range(batch)]
+    clean, noisy = (torch.from_numpy(np.stack([x[k] for x in items])).cuda() for k in (0, 1))
+    if with_carry:
+        clean, noisy = clean[:, :4000].contiguous(), noisy[:, :4000].contiguous()
+    return cfg, clean, noisy
+
+
+def _train_kernels(n):
+    return {**{k: n for k in cuda_gru.launch_counts()}, "gru_fwd": 0}
+
+
+def _step_report(a, b, metrics_a, metrics_b, lr0) -> dict:
+    ga = torch.cat([p.grad.reshape(-1).double() for p in a.model.parameters()])
+    gb = torch.cat([p.grad.reshape(-1).double() for p in b.model.parameters()])
+    pa = torch.cat([p.detach().reshape(-1).double() for p in a.model.parameters()])
+    pb = torch.cat([p.detach().reshape(-1).double() for p in b.model.parameters()])
+    exact = (torch.minimum(ga.abs(), gb.abs()) >= 1e-5) & (ga.sign() == gb.sign())
+    return {
+        "loss": max(abs(float(metrics_a[k]) - float(metrics_b[k])) / abs(float(metrics_b[k]))
+                    for k in metrics_b if k != "grad_norm"),
+        "grad_norm": abs(float(metrics_a["grad_norm"]) - float(metrics_b["grad_norm"])) / float(metrics_b["grad_norm"]),
+        "exact_share": float(exact.double().mean()),
+        "param_exact": float((pa - pb).abs()[exact].max()) if exact.any() else 0.0,
+        "param": float((pa - pb).abs().max()),
+        "stats": max(float((x - y).abs().max()) for x, y in zip(a.model.buffers(), b.model.buffers())),
+        "lr0": lr0,
+    }
+
+
+@pytest.mark.parametrize("with_carry", [False, True], ids=["whole_clip", "tbptt_carry"])
+def test_replayed_train_step_equals_the_body(card, with_carry, monkeypatch):
+    """One state trained by the slot's graph, one by the same body
+    uncaptured (`replay=False`), a third by the body again (the body's own
+    spread, printed), 3 steps from the same weights on the same batch, under
+    torch.backends.cudnn.deterministic: cuDNN's float32 weight gradients may
+    differ run to run in its default setting (chip_smoke.py holds the
+    flagship's step there), and graph and body would then differ for no
+    fault of the graph's. The capturing call launches 12 of each training
+    kernel (3 warm-ups and the replay), a replayed call 3; the first step's
+    metrics are not overwritten by later replays. Loss terms within 1e-6
+    relative and grad_norm within 1e-5; parameters after the first step
+    within 1e-6 where both gradients are clear of 0 and of one sign (0.61
+    of them at this width, measured), within 2 lr(0) elsewhere; the carry
+    within 1e-6."""
+    from tinyrecurrentunet_torch.train.state import create_train_state, make_schedule
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, clean, noisy = _tiny_training(with_carry)
+    lr0 = make_schedule(cfg)(0)
+    states = [create_train_state(cfg, device=card) for _ in range(3)]
+    steps = [make_train_step(cfg, with_carry=with_carry) for _ in range(3)]
+    h0 = [states[0].model.init_tgru_state(clean.shape[0], cfg.featurizer.num_freqs, card) + 0.1
+          for _ in range(3)] if with_carry else [None] * 3
+    first = None
+    for i in range(3):
+        cuda_gru.reset_launch_counts()
+        outs = [steps[0](states[0], clean, noisy, *([h0[0]] if with_carry else []))]
+        torch.cuda.synchronize()
+        assert cuda_gru.launch_counts() == _train_kernels(12 if i == 0 else 3)
+        outs += [steps[k](states[k], clean, noisy, *([h0[k]] if with_carry else []), replay=False)
+                 for k in (1, 2)]
+        if with_carry:
+            h0 = [out[2] for out in outs]
+            assert float((h0[0].float() - h0[1].float()).abs().max()) <= 1e-6
+        spread = _step_report(states[2], states[1], outs[2][1], outs[1][1], lr0)
+        report = _step_report(states[0], states[1], outs[0][1], outs[1][1], lr0)
+        print(f"step {i}: graph vs body {report}, body vs body {spread}")
+        assert report["loss"] <= STEP_LOSS_RTOL
+        assert report["grad_norm"] <= STEP_NORM_RTOL
+        if i == 0:
+            first = (outs[0][1], {k: v.clone() for k, v in outs[0][1].items()})
+            assert report["param_exact"] <= PARAM_ATOL and report["param"] <= 2 * lr0 + PARAM_ATOL
+            assert report["stats"] <= 1e-4
+    assert all(torch.equal(first[0][k], first[1][k]) for k in first[1])
+    assert steps[0].captures == 1 and steps[1].captures == 0 and len(steps[0]._slots) == 1
+
+
+def test_train_step_capture_records_the_backward_from_autograds_thread(card, monkeypatch):
+    """Backward runs on autograd's device thread, on the forward's stream:
+    while the step is captured every training kernel's wrapper, the
+    backward's too, finds its current stream capturing, so its launch lands
+    in the graph."""
+    import threading
+
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    seen = []
+    count = cuda_gru._count
+
+    def watched(kernel, path):
+        seen.append((kernel, torch.cuda.is_current_stream_capturing(),
+                     threading.current_thread() is threading.main_thread()))
+        count(kernel, path)
+
+    monkeypatch.setattr(cuda_gru, "_count", watched)
+    cfg, clean, noisy = _tiny_training(False)
+    state = create_train_state(cfg, device=card)
+    make_train_step(cfg)(state, clean, noisy)
+    captured = [(k, main) for k, capturing, main in seen if capturing]
+    assert sorted(k for k, _ in captured) == sorted(["gru_fwd_train", "gru_bwd", "gru_dw_partial", "gru_dw_sum"] * 3)
+    assert {main for k, main in captured if k != "gru_fwd_train"} == {False}  # autograd's thread
+
+
+def test_a_reloaded_optimizer_gets_a_new_train_capture(card, tmp_path):
+    """Loading the optimizer's state after the first call moves its
+    tensors: the next call captures anew, and later calls replay that."""
+    from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    cfg, clean, noisy = _tiny_training(False)
+    state = create_train_state(cfg, device=card)
+    step = make_train_step(cfg)
+    step(state, clean, noisy)
+    graph = next(iter(step._slots.values())).graph
+    ckpt = CheckpointManager(str(tmp_path), "TRUNet")
+    ckpt.save(0, state)
+    ckpt.restore(state, 0)
+    cuda_gru.reset_launch_counts()
+    step(state, clean, noisy)
+    step(state, clean, noisy)
+    torch.cuda.synchronize()
+    assert cuda_gru.launch_counts() == _train_kernels(15)
+    assert step.captures == 2 and next(iter(step._slots.values())).graph is not graph
+
+
+def test_a_cpu_checkpoint_restores_into_the_card_optimizer(card, tmp_path):
+    """A checkpoint the CPU's AdamW wrote restores into the card's
+    capturable one (its step counts on the card as float32, its rate tensor
+    the one it had), and the card steps on from it."""
+    from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    cfg, clean, noisy = _tiny_training(False)
+    cpu = create_train_state(cfg, device="cpu")
+    make_train_step(cfg)(cpu, clean.cpu(), noisy.cpu())
+    ckpt = CheckpointManager(str(tmp_path), "TRUNet")
+    ckpt.save(0, cpu)
+    state = create_train_state(cfg, device=card)
+    lr = state.optimizer.param_groups[0]["lr"]
+    ckpt.restore(state, 0)
+    group = state.optimizer.param_groups[0]
+    assert group["lr"] is lr and group["capturable"] and state.step == 1
+    for p, s in state.optimizer.state.items():
+        assert s["step"].device == p.device and s["step"].dtype == torch.float32 and float(s["step"]) == 1
+    _, metrics = make_train_step(cfg)(state, clean, noisy)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values()) and state.step == 2
+
+
+def test_a_failure_inside_train_capture_propagates(card, monkeypatch):
+    """No eager fallback: a training kernel's wrapper that fails while the
+    step is captured fails the call and leaves no graph in the slot."""
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    count = cuda_gru._count
+
+    def failing(kernel, path):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced failure inside capture")
+        count(kernel, path)
+
+    monkeypatch.setattr(cuda_gru, "_count", failing)
+    cfg, clean, noisy = _tiny_training(False)
+    state = create_train_state(cfg, device=card)
+    step = make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="forced failure inside capture"):
+        step(state, clean, noisy)
+    assert step.captures == 0 and [slot.graph for slot in step._slots.values()] == [None]

@@ -14,6 +14,7 @@ import dataclasses
 import functools
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -427,13 +428,25 @@ class _NoCheckpoints:
         pass
 
 
-def _record_batches(monkeypatch, loop, seen):
-    """Replace the loop's step by a recorder of the clean batches."""
-    def recorder(state, clean, noisy, *rest):
-        seen.append(np.asarray(clean).copy())
+class _Recorder:
+    """A train step that records the clean batches; its `buffers` are the
+    static inputs the port's loop gathers the device corpus into."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def buffers(self, state, batch_shape, dtype):
+        return types.SimpleNamespace(clean=torch.empty(batch_shape, dtype=dtype),
+                                     noisy=torch.empty(batch_shape, dtype=dtype))
+
+    def __call__(self, state, clean, noisy, *rest):
+        self.seen.append(np.asarray(clean).copy())
         return state, {"loss": 0.0, "grad_norm": 0.0}
 
-    monkeypatch.setattr(loop, "make_train_step", lambda *a, **k: recorder)
+
+def _record_batches(monkeypatch, loop, seen):
+    """Replace the loop's step by a recorder of the clean batches."""
+    monkeypatch.setattr(loop, "make_train_step", lambda *a, **k: _Recorder(seen))
     monkeypatch.setattr(loop, "CheckpointManager", _NoCheckpoints)
     monkeypatch.setattr(loop, "MetricsWriter", functools.partial(MetricsWriter, use_tensorboard=False))
 

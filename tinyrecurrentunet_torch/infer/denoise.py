@@ -52,6 +52,7 @@ from tinyrecurrentunet_torch.models.phm import denoise_output_to_audio
 from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
+from tinyrecurrentunet_torch.utils import graphs
 from tinyrecurrentunet_torch.weights import load_pretrained
 
 
@@ -82,8 +83,6 @@ class _Slot:
 
 class Denoiser:
     """Full-clip denoiser."""
-
-    _WARMUP = 3  # eager runs of the body before a bucket's capture
 
     def __init__(self, cfg: Config, state_dict: dict, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -196,17 +195,9 @@ class Denoiser:
 
     def _capture(self, slot: _Slot):
         """Warms the body up on a side stream, then captures one run of it
-        into the slot's CUDA graph, in the denoiser's shared memory pool."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self._WARMUP):
-                self._run_into(slot)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with cuda_gru.capture_tally() as tally, torch.cuda.graph(graph, pool=self._pool):
-            self._run_into(slot)
-        slot.graph, slot.launches = graph, tally
+        into the slot's CUDA graph, in the denoiser's shared memory pool
+        (`utils.graphs.capture`)."""
+        slot.graph, slot.launches, _ = graphs.capture(lambda: self._run_into(slot), pool=self._pool)
         self._captures += 1
 
     @staticmethod

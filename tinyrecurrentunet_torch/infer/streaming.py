@@ -51,6 +51,7 @@ from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.signal.features import FeaturizerState
 from tinyrecurrentunet_torch.signal.stft import frame_signal, overlap_add
+from tinyrecurrentunet_torch.utils import graphs
 
 
 class StreamState(NamedTuple):
@@ -64,8 +65,6 @@ class StreamCore:
     """The model, the featurizer, the state buffers and the step shared by
     the single- and the multi-stream denoiser; every tensor of a step has a
     leading stream axis of `num_streams`."""
-
-    _WARMUP = 3  # eager runs of the body before its capture
 
     def __init__(self, cfg: Config, state_dict: dict, chunk_frames: int = 1, device="cuda", num_streams: int = 1):
         fz_cfg = cfg.featurizer
@@ -145,20 +144,15 @@ class StreamCore:
 
     def _capture(self):
         """Warms the body up on a side stream (the state restored after),
-        then captures one call of it into the denoiser's CUDA graph."""
+        then captures one call of it into the denoiser's CUDA graph
+        (`utils.graphs.capture`)."""
         saved = [b.clone() for b in self._buffers]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self._WARMUP):
-                self._step_into()
-        torch.cuda.current_stream().wait_stream(side)
-        for buf, b in zip(self._buffers, saved):
-            buf.copy_(b)
-        graph = torch.cuda.CUDAGraph()
-        with cuda_gru.capture_tally() as tally, torch.cuda.graph(graph):
-            self._step_into()
-        self._graph, self._graph_launches = graph, tally
+
+        def restore():
+            for buf, b in zip(self._buffers, saved):
+                buf.copy_(b)
+
+        self._graph, self._graph_launches, _ = graphs.capture(self._step_into, restore)
         self._captures += 1
 
     @torch.inference_mode()

@@ -12,10 +12,15 @@ Counterpart of `tinyrecurrentunet_tpu/signal/stft.py`:
 The transforms are `torch.fft.rfft`/`irfft` (cuFFT on the card); framing is
 `Tensor.unfold` and overlap-add is `F.fold`, both free of atomics.
 
-`hann_window` and `stft_magnitude` serve the MR-STFT loss.
+`hann_window` and `stft_magnitude` serve the MR-STFT loss. The window is
+moved to a device once and never evicted (as `pcen.py`'s decay matrices):
+the train step makes no host-to-device copy, so a CUDA graph can capture it
+and hold the window's address.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -24,10 +29,17 @@ import torch.nn.functional as F
 
 def hann_window(win_length: int, device=None) -> torch.Tensor:
     """torch.hann_window(periodic=True): 0.5 - 0.5 cos(2 pi n / N), float32,
-    computed in float64 as the JAX package does."""
-    n = np.arange(win_length)
-    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
-    return torch.tensor(window, dtype=torch.float32, device=device)
+    computed in float64 as the JAX package does. Built once per
+    (win_length, device) and shared: callers must not write to it."""
+    return _hann_window(win_length, torch.device(device if device is not None else "cpu"))
+
+
+@functools.cache
+def _hann_window(win_length: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # usable outside inference mode too
+        n = np.arange(win_length)
+        window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+        return torch.tensor(window, dtype=torch.float32, device=device)
 
 
 def _pad_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from tinyrecurrentunet_torch import parallel
-from tinyrecurrentunet_torch.train.state import TrainState
+from tinyrecurrentunet_torch.train.state import TrainState, load_optimizer_state
 from tinyrecurrentunet_torch.weights import variables_from_state_dict
 
 _CKPT_NAME = re.compile(r"^(\d+)\.pt$")
@@ -84,7 +84,7 @@ class CheckpointManager:
         if payload is None:
             return state, -1, 0
         state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(state.optimizer, payload["optimizer"])
         state.step = int(payload["updates"])
         return state, int(payload["iter"]), int(payload["training_time_seconds"])
 

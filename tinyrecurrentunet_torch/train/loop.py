@@ -24,10 +24,16 @@ every `iters_per_ckpt` and at the end.
   prints, logs, evaluates the whole validation batch and writes checkpoints.
 - TBPTT (`tbptt_segment_sec` > 0): each batch is cut into segments, one
   update each, with the TGRU carry passed across them.
-- `profile_dir`: a torch.profiler trace of steps 10-12 (`utils.profiling.trace`).
+- `profile_dir`: a torch.profiler trace of steps 10-12 (`utils.profiling.trace`;
+  on a card the replays of the step's graph, each kernel named).
 
 Runs on `cuda` unless asked for `cpu`. On the card every GRU recurrence of
-a step goes through the CUDA kernels (3 forward and 3 backward launches).
+a step goes through the CUDA kernels (3 forward and 3 backward launches),
+and each step after the first of a batch shape is one replay of the step's
+CUDA graph (`train/step.py`): the device corpus's batches are gathered
+straight into the step's static inputs, the loader's are copied in, and the
+TBPTT carry is zeroed in the step's own carry buffer at each batch. The
+validation pass stays eager between the replays.
 The model computes in `optimization.train_compute_dtype` where the config
 sets it (bf16 in the shipped configs; `train.state.train_network_config`),
 the validation loss too, as in the JAX loop; parameters, optimizer state and
@@ -162,7 +168,14 @@ def train(
             perm = epoch_permutation(opt.seed, epoch, len(dataset))
             for i in range(0, len(perm) - batch_size + 1, batch_size):
                 idx = torch.from_numpy(perm[i : i + batch_size]).to(device)
-                yield corpus[0][idx], corpus[1][idx]
+                if seg_len > 0:
+                    yield corpus[0][idx], corpus[1][idx]
+                    continue
+                # gathered straight into the train step's static inputs
+                slot = step_fn.buffers(state, (batch_size, corpus[0].shape[1]), corpus[0].dtype)
+                torch.index_select(corpus[0], 0, idx, out=slot.clean)
+                torch.index_select(corpus[1], 0, idx, out=slot.noisy)
+                yield slot.clean, slot.noisy
         else:
             for clean, noisy, _ in loader:
                 yield (torch.from_numpy(clean.astype(np.float32)).to(device),
@@ -180,7 +193,8 @@ def train(
             if profile_dir is not None and n_iter == PROFILE_STEPS[0]:
                 profiling.enter_context(trace(profile_dir))
             if seg_len > 0:
-                tgru_h = state.model.init_tgru_state(clean.shape[0], cfg.featurizer.num_freqs, device)
+                tgru_h = step_fn.buffers(state, (clean.shape[0], seg_len), clean.dtype).carry
+                tgru_h.zero_()  # the carry of each batch starts from zeros, in the step's own buffer
                 for s in range(clean.shape[-1] // seg_len):
                     sl = slice(s * seg_len, (s + 1) * seg_len)
                     state, metrics, tgru_h = step_fn(state, clean[:, sl], noisy[:, sl], tgru_h)

@@ -9,8 +9,15 @@ taken against, peak device memory and the device. A batch that runs out of
 device memory is a row {"batch", "dtype", "oom": True}, the ladder's
 ceiling, not a crash.
 
-FLOPs of a step: `torch.utils.flop_counter.FlopCounterMode` around one step
-(the matmuls and convolutions autograd dispatches, forward and backward),
+The step is timed as training runs it, replayed from its CUDA graph on a
+card (`train/step.py`), the "never" rows of the kernel A/B too (the plain
+recurrence captured as it is); each row carries the bytes of the step's
+graph memory pool and the card's peak reserve beside its peak allocation
+(a replay allocates nothing: the pool holds the step's working set).
+
+FLOPs of a step: `torch.utils.flop_counter.FlopCounterMode` around one
+uncaptured run of the step's body, whose operators it sees dispatched (the
+matmuls and convolutions autograd dispatches, forward and backward),
 plus, on a card, the GRU kernels' FLOPs worked out from their launch shapes
 (`gru_kernel_flops`): the kernels are launched through ctypes, which the
 counter does not see. On the CPU the plain recurrence is dispatched as
@@ -48,6 +55,7 @@ from tinyrecurrentunet_torch.infer.denoise import resolve_device
 from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.train.state import create_train_state
 from tinyrecurrentunet_torch.train.step import make_train_step
+from tinyrecurrentunet_torch.utils import graphs
 from tinyrecurrentunet_torch.utils.profiling import peak_flops, throughput_seconds
 
 
@@ -89,10 +97,12 @@ def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int
     train_step = make_train_step(tcfg)
     steps = 0
 
-    def step(*args):
+    def step(*args, replay=True):
         nonlocal steps
-        steps += 1
-        return train_step(*args)
+        captures = train_step.captures
+        out = train_step(*args, replay=replay)
+        steps += 1 + graphs.WARMUP * (train_step.captures - captures)  # a capturing call's warm-ups
+        return out
 
     length = int(tcfg.trainset.crop_length_sec * tcfg.trainset.sample_rate)
     rng = np.random.default_rng(0)
@@ -103,7 +113,7 @@ def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int
     on_card = device.type == "cuda"
     kernels = on_card and tcfg.network.use_pallas_gru != "never"
     with FlopCounterMode(display=False) as counter:
-        step(state, clean, noisy)
+        step(state, clean, noisy, replay=False)
     counted = counter.get_total_flops()
     gru_flops = gru_kernel_flops(tcfg, batch, torch.cuda.get_device_properties(device).multi_processor_count) if kernels else 0
     flops = counted + gru_flops
@@ -111,7 +121,7 @@ def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int
         step(state, clean, noisy)
     if on_card:
         torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.reset_peak_memory_stats(device)  # after the capture: the replays' peaks
     sec = throughput_seconds(lambda: step(state, clean, noisy)[1], lambda m: float(m["loss"]),
                              reps_hi=reps_hi, reps_lo=reps_lo)
     peak = peak_flops(device, compute_dtype) if on_card else None
@@ -129,8 +139,13 @@ def measure_train_step(cfg: Config, batch: int, compute_dtype: str, reps_hi: int
         if kernels else "FlopCounterMode (matmuls, convolutions; the plain GRU's among them)",
         "peak_tflops": peak / 1e12 if peak else None,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved(device) / 1e9 if on_card else None,
+        "graph_pool_bytes": graphs.pool_bytes(train_step._pool) if on_card else None,
+        # the card's reserve after the capture's warm-ups, before their cached blocks were freed
+        "reserved_after_warmup_bytes": next(iter(train_step._slots.values())).memory["reserved_after_warmup"]
+        if on_card else None,
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
-        "steps": steps,  # train steps the row ran, warm-up and FLOP count included
+        "steps": steps,  # train steps the row ran, the capture's warm-ups and the FLOP count included
     }
 
 

@@ -10,7 +10,16 @@ weight_decay)):
   parameter (optax has no mask here; the BatchNorm running statistics are
   buffers, not parameters). `torch.optim.AdamW` computes optax's update when
   its rate is set to schedule(k) before update k (0-based), as the train
-  step does.
+  step does (`set_learning_rate`).
+
+On a card AdamW is `capturable`, so that a CUDA graph of the train step can
+replay its update: its step counts live on the card, its bias corrections
+are taken there in float32 (as optax takes them), and its rate is a 0-dim
+float32 tensor on the card that `set_learning_rate` writes in place before
+each update. On the CPU, whose parameters `capturable` refuses, the rate is
+a float and the step counts and bias corrections stay on the host. Both
+compute the same update in exact arithmetic, and a checkpoint written by
+either restores into the other (`load_optimizer_state`).
 
 Initial weights are flax's distributions drawn from a `torch.Generator`
 seeded with `optimization.seed` (`models.blocks.init_parameters`).
@@ -56,13 +65,40 @@ def make_schedule(cfg: Config):
 
 
 def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
-    return torch.optim.AdamW(
-        model.parameters(),
-        lr=make_schedule(cfg)(0),
-        betas=(0.9, 0.999),
-        eps=1e-8,
-        weight_decay=cfg.train.optimization.weight_decay,
-    )
+    """AdamW over the model's parameters, `capturable` where they lie on a card."""
+    device = next(model.parameters()).device
+    lr = make_schedule(cfg)(0)
+    hyper = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.train.optimization.weight_decay)
+    if device.type == "cuda":
+        lr = torch.tensor(lr, dtype=torch.float32, device=device)
+        return torch.optim.AdamW(model.parameters(), lr=lr, capturable=True, foreach=True, **hyper)
+    return torch.optim.AdamW(model.parameters(), lr=lr, **hyper)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
+    """The rate of the next update: written into a card optimizer's rate
+    tensor (a CUDA graph holds its address), assigned on the CPU."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict):
+    """`optimizer.load_state_dict` from a checkpoint of either form (the
+    card's capturable one or the CPU's), keeping the optimizer's own form:
+    its groups' rate holder and flags, and its step counts on the card as
+    float32 when it is capturable, on the host otherwise."""
+    own = [{k: group[k] for k in ("lr", "capturable", "foreach")} for group in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, kept in zip(optimizer.param_groups, own):
+        group.update(kept)
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                device = p.device if kept["capturable"] else "cpu"
+                state["step"] = state["step"].to(dtype=torch.float32, device=device)
 
 
 def create_train_state(cfg: Config, device="cuda") -> TrainState:

@@ -5,32 +5,75 @@
     step(state, clean, noisy) -> (state, metrics)                      with_carry False
     step(state, clean, noisy, tgru_h0) -> (state, metrics, tgru_h)     with_carry True
 
-clean/noisy are (B, L) waveforms on the model's device. One step: the
-loss in training mode (BatchNorm on batch statistics, updating the running
-ones), backward, the global gradient norm taken before clipping, clipping,
-then the AdamW update at schedule(state.step). The TBPTT variant threads the
-TGRU carry through and returns it detached, so gradients stop at segment
-boundaries. Unlike the JAX step the model is not an argument: the state
-holds it. metrics are 0-dim tensors on the device (the loss terms and
-"grad_norm"), read by the caller only when it logs.
+clean/noisy are (B, L) waveforms. One step: the loss in training mode
+(BatchNorm on batch statistics, updating the running ones), backward, the
+global gradient norm taken before clipping, clipping, then the AdamW update
+at schedule(state.step). The TBPTT variant threads the TGRU carry through
+and returns it detached, so gradients stop at segment boundaries. Unlike the
+JAX step the model is not an argument: the state holds it. metrics are 0-dim
+tensors on the model's device (the loss terms and "grad_norm"), read by the
+caller only when it logs.
 
-Under data parallelism (a process group of several ranks, `parallel/mesh.py`)
-each rank passes its shard of the global batch, and the step is the global
-batch's, as the JAX step over a mesh: the loss and its terms are the global
-batch's on every rank, the gradients are summed across ranks, then the
-global norm, the clip and AdamW run on every rank alike, so the replicas
-stay bit-equal.
+The step runs as the JAX package's jitted, donated step runs
+(`jax.jit(fn, donate_argnums=(0,))`; with the carry `donate_argnums=(0, 3)`),
+one program a batch shape over the train state in place. A call works on a
+slot, one a (state, batch shape, dtype): static `clean` and `noisy` buffers,
+with the carry a static TGRU carry, and on a card the CUDA graph of the
+whole step (featurize, forward, loss, backward, global norm, clip, AdamW)
+and its static metrics. The batch is copied into the slot's buffers (a
+batch already in them, as the loop's device corpus gathers it, is not); the
+learning rate is written into the optimizer's rate tensor
+(`train.state.set_learning_rate`); the graph is replayed; `state.step` is
+counted on the host. The metrics are returned as copies of the static ones.
+
+- A slot's first call on a card snapshots the state (the model's parameters
+  and buffers, the optimizer's state, "none yet" included, and the carry),
+  warms the step up 3 times on a side stream (the kernels' build, cuFFT's
+  plans, cuDNN's choices, AdamW's state), restores the state in place
+  (optimizer state the warm-up made goes back to AdamW's zeros and step 0),
+  empties the allocator's cache so the warm-up's blocks do not sit beside
+  the graph's pool, captures one step (`utils.graphs.capture`) into a pool
+  all of the step's slots share, and replays it: the call is one step from
+  the state it was given. It counts 3 x (3 + 1) launches of each training
+  kernel, a replayed call 3.
+- The gradients are tensors of the model that every slot writes: they are
+  made (zeros) before a step that finds none, the step zeroes them in place
+  and backward accumulates into them, inside the graph as outside it.
+- The carry is donated: the step ends by writing h_T into the slot's carry
+  buffer and returns that buffer; passed back, it is read where it lies; any
+  other carry is copied in.
+- A slot never replays over stale addresses: it records the address of
+  every parameter, gradient, model buffer, optimizer state tensor and rate
+  tensor at its first call, and a call that finds one moved (an optimizer
+  whose state was loaded again, gradients set to None) drops the slot and
+  builds it anew.
+- `step(..., replay=False)` runs the step's body uncaptured on the slot
+  (the card tests and chip_smoke.py hold and time the graph against it). On
+  the CPU every call runs the body on the slot. A capture or a replay that
+  fails raises: nothing falls back to the body.
+- Under data parallelism (a process group of several ranks,
+  `parallel/mesh.py`) the step stays eager, with no slot: its collectives
+  (gloo, or NCCL outside a capture) run launch by launch. Each rank passes
+  its shard of the global batch, and the step is the global batch's, as the
+  JAX step over a mesh: the loss and its terms are the global batch's on
+  every rank, the gradients are summed across ranks, then the global norm,
+  the clip and AdamW run on every rank alike, so the replicas stay
+  bit-equal.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.config import Config
 from tinyrecurrentunet_torch.losses import loss_fn
+from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
-from tinyrecurrentunet_torch.train.state import TrainState, make_schedule
+from tinyrecurrentunet_torch.train.state import TrainState, make_schedule, set_learning_rate
+from tinyrecurrentunet_torch.utils import graphs
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -47,42 +90,192 @@ def clip_by_global_norm_(tensors, max_norm: float, norm: torch.Tensor):
         t.copy_(torch.where(keep, t, t / norm * max_norm))
 
 
-def make_train_step(cfg: Config, with_carry: bool = False, featurizer=None):
-    """`featurizer` makes the noisy input's features (default
-    `Featurizer(cfg.featurizer)`)."""
-    featurizer = featurizer or Featurizer(cfg.featurizer)
-    loss_cfg = cfg.train.loss_config
-    max_norm = cfg.train.optimization.grad_clip_norm
-    schedule = make_schedule(cfg)
+@dataclasses.dataclass
+class _Slot:
+    """One (state, batch shape, dtype): the static inputs, on a card the
+    graph, the kernels' launches a replay runs (`cuda_gru.capture_tally`)
+    and the graph's static metrics; the addresses the slot was built on."""
 
-    def step(state: TrainState, clean, noisy, tgru_h0=None):
+    model: torch.nn.Module  # held, so that the key's ids stay theirs
+    optimizer: torch.optim.Optimizer
+    clean: torch.Tensor
+    noisy: torch.Tensor
+    carry: torch.Tensor | None
+    graph: torch.cuda.CUDAGraph | None = None
+    launches: dict | None = None
+    metrics: dict | None = None
+    addresses: tuple | None = None
+    memory: dict | None = None  # the card's reserved bytes around the capture
+
+
+def _ensure_grads(model: torch.nn.Module):
+    """Zero gradients for the parameters that have none."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def _optimizer_tensors(optimizer: torch.optim.Optimizer):
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            yield group["lr"]
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            yield from (state[k] for k in sorted(state) if isinstance(state[k], torch.Tensor))
+
+
+def _addresses(state: TrainState) -> tuple:
+    """The address of every tensor a captured step reads or writes in place."""
+    model = state.model
+    tensors = (*model.parameters(), *(p.grad for p in model.parameters()), *model.buffers(),
+               *_optimizer_tensors(state.optimizer))
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def _snapshot(state: TrainState, slot: _Slot):
+    """A restore() that puts the model's parameters and buffers, the
+    optimizer's state and the slot's carry back as they are now; optimizer
+    state made after the snapshot goes back to AdamW's initial zeros."""
+    model, optimizer = state.model, state.optimizer
+    tensors = [*model.parameters(), *model.buffers(), *([slot.carry] if slot.carry is not None else [])]
+    saved = [t.detach().clone() for t in tensors]
+    saved_opt = {p: {k: v.clone() for k, v in st.items()} for p, st in optimizer.state.items()}
+
+    @torch.no_grad()
+    def restore():
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        for p, st in optimizer.state.items():
+            for k, v in st.items():
+                if p in saved_opt:
+                    v.copy_(saved_opt[p][k])
+                else:
+                    v.zero_()
+
+    return restore
+
+
+class TrainStep:
+    """The train step of `make_train_step`: a callable holding its slots."""
+
+    def __init__(self, cfg: Config, with_carry: bool = False, featurizer=None):
+        self.cfg = cfg
+        self.with_carry = with_carry
+        self.featurizer = featurizer or Featurizer(cfg.featurizer)
+        self.schedule = make_schedule(cfg)
+        self._slots: dict[tuple, _Slot] = {}
+        self._pool = None  # the graph memory pool of all the slots, made at the first capture
+        self.captures = 0
+
+    def __call__(self, state: TrainState, clean, noisy, tgru_h0=None, replay: bool = True):
+        if self.with_carry != (tgru_h0 is not None):
+            raise TypeError("a TGRU carry is passed exactly when the step was made with_carry")
+        _ensure_grads(state.model)
+        if parallel.world_size() > 1:
+            return self._eager(state, clean, noisy, tgru_h0)
+        slot = self.buffers(state, tuple(clean.shape), clean.dtype)
+        for buf, given in ((slot.clean, clean), (slot.noisy, noisy), (slot.carry, tgru_h0)):
+            if given is not None and given is not buf:
+                if given.shape != buf.shape:
+                    raise ValueError(f"input of shape {tuple(given.shape)}, expected {tuple(buf.shape)}")
+                buf.copy_(given)
+        set_learning_rate(state.optimizer, self.schedule(state.step))
+        if replay and slot.clean.device.type == "cuda":
+            with torch.cuda.device(slot.clean.device):
+                if slot.graph is None:
+                    self._capture(state, slot)
+                state.model.train()
+                slot.graph.replay()
+            cuda_gru.add_launches(slot.launches)
+            metrics = {k: v.clone() for k, v in slot.metrics.items()}
+        else:
+            metrics = self._body(state, slot)
+        if slot.addresses is None:
+            slot.addresses = _addresses(state)
+        state.step += 1
+        return (state, metrics, slot.carry) if self.with_carry else (state, metrics)
+
+    def buffers(self, state: TrainState, batch_shape: tuple, dtype=torch.float32) -> _Slot:
+        """The slot of `state` and (B, L) batches of `dtype`: its static
+        `clean`, `noisy` and (with the carry) `carry` buffers, on the model's
+        device, made at its first use; built anew where a tensor it was
+        built on has moved."""
+        model = state.model
+        key = (id(model), id(state.optimizer), tuple(batch_shape), dtype)
+        slot = self._slots.get(key)
+        if slot is not None and slot.addresses is not None and slot.addresses != _addresses(state):
+            slot = None
+        if slot is None:
+            device = next(model.parameters()).device
+            carry = None
+            if self.with_carry:
+                carry = model.init_tgru_state(batch_shape[0], self.cfg.featurizer.num_freqs, device)
+            slot = _Slot(model, state.optimizer, torch.zeros(batch_shape, dtype=dtype, device=device),
+                         torch.zeros(batch_shape, dtype=dtype, device=device), carry)
+            self._slots[key] = slot
+        return slot
+
+    def _run(self, state: TrainState, clean, noisy, tgru_h0):
+        """The step's arithmetic on the given tensors: (metrics, tgru_h)."""
         model = state.model
         model.train()
-        state.optimizer.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad(set_to_none=False)
         loss, loss_dict, tgru_h = loss_fn(
-            model, clean, noisy, featurizer, cfg.network, loss_cfg, tgru_h0=tgru_h0,
-            across_ranks=parallel.world_size() > 1,
+            model, clean, noisy, self.featurizer, self.cfg.network, self.cfg.train.loss_config,
+            tgru_h0=tgru_h0, across_ranks=parallel.world_size() > 1,
         )
         loss.backward()
         grads = [p.grad for p in model.parameters()]
         parallel.sum_gradients_(grads)
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = global_norm(grads)
-        clip_by_global_norm_(grads, max_norm, metrics["grad_norm"])
-        for group in state.optimizer.param_groups:
-            group["lr"] = schedule(state.step)
+        clip_by_global_norm_(grads, self.cfg.train.optimization.grad_clip_norm, metrics["grad_norm"])
         state.optimizer.step()
-        state.step += 1
-        if with_carry:
-            return state, metrics, tgru_h.detach()
-        return state, metrics
+        return metrics, tgru_h
 
-    return step
+    def _body(self, state: TrainState, slot: _Slot) -> dict:
+        """The step on the slot's buffers, h_T written into its carry."""
+        metrics, tgru_h = self._run(state, slot.clean, slot.noisy, slot.carry)
+        if slot.carry is not None:
+            slot.carry.copy_(tgru_h.detach())
+        return metrics
+
+    def _capture(self, state: TrainState, slot: _Slot):
+        """The slot's graph: 3 warm-up steps, the state restored in place,
+        the allocator's cache emptied, one step captured."""
+        restore_state = _snapshot(state, slot)
+
+        def restore():
+            restore_state()
+            warm = torch.cuda.memory_reserved()
+            torch.cuda.empty_cache()
+            slot.memory = {"reserved_after_warmup": warm, "reserved_before_capture": torch.cuda.memory_reserved()}
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        slot.graph, slot.launches, slot.metrics = graphs.capture(
+            lambda: self._body(state, slot), restore, self._pool)
+        slot.memory["reserved_after_capture"] = torch.cuda.memory_reserved()
+        self.captures += 1
+
+    def _eager(self, state: TrainState, clean, noisy, tgru_h0):
+        """The step of a data-parallel rank, launch by launch."""
+        set_learning_rate(state.optimizer, self.schedule(state.step))
+        metrics, tgru_h = self._run(state, clean, noisy, tgru_h0)
+        state.step += 1
+        return (state, metrics, tgru_h.detach()) if self.with_carry else (state, metrics)
+
+
+def make_train_step(cfg: Config, with_carry: bool = False, featurizer=None) -> TrainStep:
+    """`featurizer` makes the noisy input's features (default
+    `Featurizer(cfg.featurizer)`)."""
+    return TrainStep(cfg, with_carry, featurizer)
 
 
 def make_eval_step(cfg: Config):
     """(state, clean, noisy) -> loss_dict, with the model in eval mode (BatchNorm
-    on its running statistics, nothing updated)."""
+    on its running statistics, nothing updated). Eager: it runs once every
+    `iters_per_valid` iterations, between replays of the train step."""
     featurizer = Featurizer(cfg.featurizer)
     loss_cfg = cfg.train.loss_config
 
