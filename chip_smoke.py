@@ -88,10 +88,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. drive training as users run it: (a) `train()` on config/proc16k.json as
    shipped (bf16) on a 128-item procedural corpus and its 32-item validation
    set, 3 steps at batch 64, launch counts around it (18 of each training
-   kernel, 3 gru_fwd for the validation pass at iteration 0), its checkpoint
+   kernel, 12 gru_fwd for the validation pass at iteration 0: the eval
+   slot's 3 warm-ups and its replayed graph), its checkpoint
    resumed into a fresh state whose replayed step is held to the continued
    one's, the device corpus bit-equal to `dataset.get`, the replayed step
-   against the body on the corpus's batches as in phase 5; (b) `train()`
+   against the body on the corpus's batches as in phase 5; the validation
+   pass of the trained state through a new eval step, with the launch
+   counts set to 0 just before and read just after its capturing call (12
+   gru_fwd) and a replayed call (3 gru_fwd, nothing else), the replayed
+   loss terms held to the body's (GRAPH_ATOL relative), both timed (median,
+   idle share) beside the eval graph pool's bytes; (b) `train()`
    with a profile directory, 13 steps at batch 8 in float32, whose trace of
    steps 10-12 (replays of the step's graph) names each training kernel;
    (c) two ranks on this card under
@@ -99,8 +105,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in float32 against the single-process card step on the same 16 clips:
    loss terms within 1e-5, grad_norm within 1e-4 relative, parameters by
    phase 5's measure, the ranks bit-equal, 3 launches of each training
-   kernel a rank (the data-parallel step stays eager), and both steps
-   timed; (d) `export_pretrained` of (a)'s
+   kernel a rank (gloo's step runs its body, which each rank reports), and
+   the steps timed; then `scripts/torch_dp_step.py` alone, a group of one
+   rank over NCCL, held the same way against the single-process step on
+   its 8 clips: its step replayed from a CUDA graph holding the
+   collectives (12 launches of each training kernel in the capturing call),
+   then 3 steps of fresh weights replayed (the first capturing) against 3
+   of the body under torch.backends.cudnn.deterministic, bit-equal, 3
+   launches of each training kernel a replay, the all-reduces issued while capturing from
+   the main thread and from autograd's, the NCCL kernels torch.profiler
+   names in a replay, graph and body timed; (d) `export_pretrained` of (a)'s
    checkpoint served by a card Denoiser, bit-equal to one built from (a)'s
    model (3 gru_fwd a replayed call; cuDNN's deterministic algorithms), the npz holding the
    model's parameters and statistics bit for bit; (e) `train/scaling.py` in bf16 at batch 32, 64 and 128
@@ -114,7 +128,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (`use_pallas_gru` "never", no launch) there; (b) the port's int8 pack of pretrained.npz
    byte-equal to the committed model_int8.trq; (c) `export/rt_bench.py`'s
    four engines (seconds and RTF; 3 gru_fwd a call of the full clip and of a
-   frame, none in the TorchScript artifact); (d) `ops/gru_bench.py`'s five
+   frame, none in the TorchScript artifact), the port's three replayed from
+   their CUDA graphs and as their bodies, each graph engine's output held
+   to its body's (GRAPH_ATOL: the full clip, the int8 engine, 20 frames and
+   the carry); (d) `ops/gru_bench.py`'s five
    rows (plain version against gru_fwd, times and the largest difference of
    their outputs); (e) the kernel A/B of `train/scaling.py` at batch 64 in
    float32, each replayed from its graph, "never" launching none of the
@@ -341,6 +358,8 @@ PROC_ITEMS = 128
 PROC_STEPS = 3
 DP_BATCH = 8
 DP_TIMEOUT_S = 300
+DP_GRAPH_STEPS = 3  # the one-rank NCCL step: replayed steps held bit-equal to the body's
+EVAL_CALLS = 20  # validation passes timed, replayed and as the body (phase 9 (a))
 SCALING_BATCHES = (32, 64, 128)
 # The 2-rank step against the single-process step on the same clips, both on
 # the card in float32: the same arithmetic but for the order of the global
@@ -2058,10 +2077,11 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
         f"{cfg.train.optimization.batch_size_per_device}: {train_s:.2f} s (synthesis included), launches {counts}, "
         f"{json.dumps(metrics)}")
     # 3 launches of each training kernel a step; the validation pass at
-    # iteration 0 (iters_per_valid divides 0) runs in eval mode under no_grad:
-    # 3 gru_fwd
+    # iteration 0 (iters_per_valid divides 0) runs in eval mode under no_grad,
+    # the eval slot's first call: 3 gru_fwd in each of its 3 warm-ups and 3
+    # in its replayed graph
     expected = {k: train_launches(PROC_STEPS) for k in counts}
-    expected["gru_fwd"] = 3
+    expected["gru_fwd"] = 3 * (3 + 1)
     if counts != expected:
         raise AssertionError(f"launches in {PROC_STEPS} procedural train steps: {counts}, expected {expected}")
     logged = [first["Train/Train-Loss"], first["Valid/Valid-Loss"], *metrics.values()]
@@ -2079,6 +2099,7 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
     graph_vs_body = train_graph_vs_body("[proc-train]", cfg, lambda: create_train_state(cfg, device="cuda"),
                                         corpus_batches)
     del corpus, corpus_batches
+    validation = eval_graph_vs_body(cfg, state, valid, cuda_gru)
 
     trained = state.model.state_dict()
     loaded = load_pretrained(export_dir, cfg)  # checks the artifact meta
@@ -2108,10 +2129,68 @@ def procedural_training(cfg, clip: np.ndarray, cuda_gru) -> tuple[dict, dict]:
         raise AssertionError("the exported weights do not serve the trained model's waveform bit for bit")
     summary = {"items": PROC_ITEMS, "steps": PROC_STEPS, "train_s": train_s, "phase_s": time.perf_counter() - t0,
                "launches": counts, "metrics": metrics, "valid_loss_iteration_0": first["Valid/Valid-Loss"],
-               "export_launches": export_counts, "resumed_vs_continued": resumed, "graph_vs_body": graph_vs_body}
+               "export_launches": export_counts, "resumed_vs_continued": resumed, "graph_vs_body": graph_vs_body,
+               "validation": validation}
     del state
     torch.cuda.empty_cache()
     return summary, counts
+
+
+def eval_graph_vs_body(cfg, state, valid, cuda_gru) -> dict:
+    """Phase 9 (a): the validation pass of `train()` on the trained `state`
+    through a new eval step, on the batch train() makes in its slot
+    (`loop.validation_batch`): the slot's first call (3 warm-ups and the
+    capture: 12 gru_fwd) and a replayed call (3 gru_fwd, nothing else), the
+    launch counts set to 0 just before and read just after each; the
+    replayed loss terms against the body's (`replay=False`) within
+    GRAPH_ATOL relative; EVAL_CALLS passes of each (the call and the read of
+    its loss) timed on the host clock, and kernels, device busy and idle
+    share under torch.profiler (`hop_profile`), beside the eval graph
+    pool's bytes and the card's name and power limit."""
+    from tinyrecurrentunet_torch.train.loop import validation_batch
+    from tinyrecurrentunet_torch.train.step import make_eval_step
+    from tinyrecurrentunet_torch.utils import graphs
+
+    evaluate = make_eval_step(cfg)
+    batch = validation_batch(evaluate, state, valid, cfg.train.optimization.batch_size_per_device)
+    counts = {}
+    for name in ("capturing_call", "replayed_call"):
+        cuda_gru.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = evaluate(state, *batch)
+        torch.cuda.synchronize()
+        counts[name] = cuda_gru.launch_counts()
+        if name == "capturing_call":
+            first_s = time.perf_counter() - t0
+    want = evaluate(state, *batch, replay=False)
+    errs = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k])) for k in want}
+    rows = {}
+    for name, replay in (("graph", True), ("body", False)):
+        def call():
+            return float(evaluate(state, *batch, replay=replay)["loss"])
+
+        call()
+        lat = []
+        for _ in range(EVAL_CALLS):
+            t0 = time.perf_counter()
+            call()
+            lat.append(time.perf_counter() - t0)
+        prof = hop_profile(call, 5)
+        rows[name] = {"step": name, "calls": EVAL_CALLS, **percentiles_ms(lat), **prof}
+        rows[name]["device_idle_share"] = 1.0 - prof["device_busy_ms"] / rows[name]["median_ms"]
+    report = {"batch": list(batch[0].shape), "launches": counts, "first_call_s": first_s,
+              "graph_vs_body_rel_err": errs, "graph": rows["graph"], "body": rows["body"],
+              "pool_bytes": graphs.pool_bytes(evaluate._pool), "captures": evaluate.captures,
+              "device": nvidia_smi_line()}
+    log(f"[proc-train] validation pass, replayed vs body: {json.dumps(report)}")
+    only = {k: 0 for k in counts["replayed_call"]}
+    if counts != {"capturing_call": {**only, "gru_fwd": 12}, "replayed_call": {**only, "gru_fwd": 3}}:
+        raise AssertionError(f"validation pass launches {counts}: expected 12 and 3 gru_fwd, nothing else")
+    if not all(err <= GRAPH_ATOL for err in errs.values()) or not np.isfinite(list(errs.values())).all():
+        raise AssertionError(f"validation pass, graph vs body {errs} > {GRAPH_ATOL:.0e}")
+    if evaluate.captures != 1 or len(evaluate._slots) != 1:
+        raise AssertionError(f"the eval step captured {evaluate.captures} times in {len(evaluate._slots)} slots")
+    return report
 
 
 def resumed_step(cfg, state, batch) -> dict:
@@ -2207,13 +2286,17 @@ def profiled_training(f32_cfg) -> dict:
 
 
 def data_parallel_step(f32_cfg, ranks: int = 2, batch: int = DP_BATCH, backend: str = "gloo",
-                       device: str = "cuda:0") -> tuple[dict, list]:
-    """Phase 9 (c): `ranks` ranks of scripts/torch_dp_step.py under torchrun,
-    by default two on this card (gloo: NCCL refuses two ranks on one card),
-    one train() step each at `batch` clips of 2 s, float32; against the
-    single-process step on the first card on the same ranks x batch clips in
-    rank-major order; then both steps timed (scripts/torch_dp_cards.py runs
-    one rank per card with nccl)."""
+                       device: str = "cuda:0", graph_steps: int = 0) -> tuple[dict, list]:
+    """Phase 9 (c): `ranks` ranks of scripts/torch_dp_step.py under torchrun
+    (one rank: the script alone, which makes its group of one), by default
+    two on this card (gloo: NCCL refuses two ranks on one card), one train()
+    step each at `batch` clips of 2 s, float32; against the single-process
+    step on the first card on the same ranks x batch clips in rank-major
+    order; then the ranks' steps (replayed over NCCL, the body over gloo) and
+    their bodies timed beside the single-process step
+    (scripts/torch_dp_cards.py runs one rank per card with nccl). With
+    `graph_steps`, each rank also holds that many replayed steps bit-equal
+    to the body's under cudnn.deterministic (`--graph_vs_body`)."""
     from tinyrecurrentunet_torch.config import config_to_dict
     from tinyrecurrentunet_torch.train.schedule import linear_warmup_cosine_decay
     from tinyrecurrentunet_torch.train.state import create_train_state
@@ -2225,11 +2308,16 @@ def data_parallel_step(f32_cfg, ranks: int = 2, batch: int = DP_BATCH, backend: 
     with open(cfg_path, "w") as f:
         json.dump(config_to_dict(cfg), f)
     out_dir = os.path.join(workdir, "out")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(ranks),
-           os.path.join(REPO, "scripts", "torch_dp_step.py"), "-c", cfg_path, "--out", out_dir,
-           "--items", str(ranks * batch), "--device", device, "--backend", backend, "--time_steps", "5"]
+    launcher = [] if ranks == 1 else ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(ranks)]
+    cmd = [sys.executable, *launcher, os.path.join(REPO, "scripts", "torch_dp_step.py"), "-c", cfg_path,
+           "--out", out_dir, "--items", str(ranks * batch), "--device", device, "--backend", backend,
+           "--time_steps", "5", "--graph_vs_body", str(graph_steps)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=workdir, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    try:
+        res = subprocess.run(cmd, cwd=workdir, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"the {ranks}-rank step did not end in {DP_TIMEOUT_S} s:\n{str(e.stdout)[-3000:]}\n"
+                             f"{str(e.stderr)[-3000:]}") from e
     run_s = time.perf_counter() - t0
     if res.returncode != 0:
         raise AssertionError(f"the {ranks}-rank step failed ({res.returncode}):\n{res.stdout[-3000:]}\n"
@@ -2276,9 +2364,10 @@ def data_parallel_step(f32_cfg, ranks: int = 2, batch: int = DP_BATCH, backend: 
         "grad_rel_l2": rel_l2(dp_grads, grads), "param_exact_share": exact.double().mean().item(),
         "clear_share": clear.double().mean().item(), "sign_agreement": (exact.sum() / clear.sum()).item(),
         "param_max_abs_err_exact": param_err[exact].max().item(), "param_max_abs_err": param_err.max().item(),
-        "launches_per_rank": [run["launches"] for run in runs],
-        "step_ms_ranks": [run["step_ms"] for run in runs], "step_ms_single_process": single_ms,
-        "run_s": run_s, "metrics": a["metrics"],
+        "launches_per_rank": [run["launches"] for run in runs], "replayed": [run["replayed"] for run in runs],
+        "step_ms_ranks": [run["step_ms"] for run in runs], "body_ms_ranks": [run["body_ms"] for run in runs],
+        "step_ms_single_process": single_ms, "run_s": run_s, "metrics": a["metrics"],
+        "graph_vs_body": [run.get("graph_vs_body") for run in runs], "nvidia_smi": nvidia_smi_line(),
     }
     log(f"[dp] {ranks}-rank step vs the single-process step on the same {ranks * batch} clips: {json.dumps(report)}")
     for name, err in report["loss_rel_err"].items():
@@ -2297,14 +2386,41 @@ def data_parallel_step(f32_cfg, ranks: int = 2, batch: int = DP_BATCH, backend: 
         raise AssertionError(f"{ranks}-rank step: params {report['param_max_abs_err_exact']:.3e}")
     if not report["param_max_abs_err"] <= 2 * lr0 + PARAM_ATOL:
         raise AssertionError(f"{ranks}-rank step: params {report['param_max_abs_err']:.3e}")
+    # over NCCL the step's first call warms up 3 times and replays the graph
+    # it captured, over gloo it runs the body once
+    replayed = backend == "nccl"
     for run in runs:
-        want = {k: 3 for k in run["launches"]}
+        want = {k: 12 if replayed else 3 for k in run["launches"]}
         want["gru_fwd"] = 0
-        if run["launches"] != want:
-            raise AssertionError(f"rank {run['rank']} launched {run['launches']}, expected {want}")
+        if run["launches"] != want or run["replayed"] is not replayed or run["captures"] != int(replayed):
+            raise AssertionError(f"rank {run['rank']} ({backend}): replayed {run['replayed']}, captures "
+                                 f"{run['captures']}, launched {run['launches']}; expected replayed {replayed}, "
+                                 f"{want}")
+        if graph_steps:
+            check_dp_graph_vs_body(run, graph_steps)
     del state
     torch.cuda.empty_cache()
     return report, report["launches_per_rank"]
+
+
+def check_dp_graph_vs_body(run: dict, steps: int):
+    """A rank's `--graph_vs_body` report: every call replayed and bit-equal
+    to the body (metrics, parameters, gradients, buffers), 12 launches of
+    each training kernel in the capturing call and 3 in each later one, one
+    capture, and all-reduces captured from the main thread (BatchNorm, the
+    loss, the gradients' sum) and from autograd's (the sum-backward)."""
+    report = run["graph_vs_body"]
+    calls = report["calls"]
+    for i, call in enumerate(calls):
+        want = {k: 12 if i == 0 else 3 for k in call["launches"]}
+        want["gru_fwd"] = 0
+        if not (call["replayed"] and call["metrics_equal"] and call["state_equal"] and call["launches"] == want):
+            raise AssertionError(f"rank {run['rank']} call {i}: graph vs body under cudnn.deterministic {call}, "
+                                 f"expected bit-equal, replayed, launches {want}")
+    captured = report["captured_all_reduces"]
+    if (len(calls) != steps or report["captures"] != 1 or report["body_captures"] != 0
+            or captured["main_thread"] < 1 or captured["autograd_thread"] < 1):
+        raise AssertionError(f"rank {run['rank']}: graph vs body {report}")
 
 
 def scaling_ladder(cfg) -> list:
@@ -2405,20 +2521,23 @@ def export_and_benches(cfg, cuda_gru) -> tuple[dict, dict]:
     if not same:
         raise AssertionError("the port's int8 pack differs from artifacts/TRUNet-proc/model_int8.trq")
 
-    # (c) rt_bench
-    cuda_gru.reset_launch_counts()
-    bench = rt_bench.run_bench(cfg, state_dict, ts_report["path"], device="cuda", reps_hi=20, reps_lo=4,
-                               frame_reps_hi=50, frame_reps_lo=10)
-    torch.cuda.synchronize()
-    launches["rt_bench"] = cuda_gru.launch_counts()
-    bench["nvidia_smi"] = card
-    summary["rt_bench"] = bench
-    log(f"[rt_bench] {json.dumps(bench)}")
-    per_call = bench["gru_fwd_per_call"]
-    if (per_call != {"eager_full_clip": 3, "eager_per_frame": 3, "int8_full_clip": 3, "torchscript_full_clip": 0}
-            or any(v for k, v in launches["rt_bench"].items() if k != "gru_fwd")
-            or not all(np.isfinite(v) and v > 0 for k, v in bench.items() if k.endswith(("_s", "_rtf")))):
-        raise AssertionError(f"rt_bench: {bench}, launches {launches['rt_bench']}")
+    # (c) rt_bench: the graph engines, then their bodies; each graph engine
+    # held to its body
+    for key, replay in (("rt_bench", True), ("rt_bench_body", False)):
+        cuda_gru.reset_launch_counts()
+        bench = rt_bench.run_bench(cfg, state_dict, ts_report["path"], device="cuda", reps_hi=20, reps_lo=4,
+                                   frame_reps_hi=50, frame_reps_lo=10, replay=replay)
+        torch.cuda.synchronize()
+        launches[key] = cuda_gru.launch_counts()
+        bench["nvidia_smi"] = card
+        summary[key] = bench
+        log(f"[rt_bench] {'graph' if replay else 'body'}: {json.dumps(bench)}")
+        per_call = bench["gru_fwd_per_call"]
+        if (per_call != {"graph_full_clip": 3, "graph_per_frame": 3, "int8_full_clip": 3, "torchscript_full_clip": 0}
+                or any(v for k, v in launches[key].items() if k != "gru_fwd")
+                or not all(np.isfinite(v) and v > 0 for k, v in bench.items() if k.endswith(("_s", "_rtf")))):
+            raise AssertionError(f"{key}: {bench}, launches {launches[key]}")
+    summary["rt_bench_graph_vs_body"] = rt_bench_graph_vs_body(cfg, state_dict, feats_tcf, cuda_gru)
 
     # (d) gru_bench
     cuda_gru.reset_launch_counts()
@@ -2451,6 +2570,37 @@ def export_and_benches(cfg, cuda_gru) -> tuple[dict, dict]:
     summary["kernel_ab"] = {"rows": ab, "launches": counts}
     torch.cuda.empty_cache()
     return summary, launches
+
+
+def rt_bench_graph_vs_body(cfg, state_dict, feats_tcf, cuda_gru, frames: int = 20) -> dict:
+    """Phase 10 (c): each of rt_bench's graph engines of the port's model
+    against the same engine's body on the export shape's features: the full
+    clip and the int8 engine one call, the per-frame engine `frames` frames
+    from a zero carry (each frame's output and the carry after), within
+    GRAPH_ATOL; 3 gru_fwd a replay, nothing else."""
+    from tinyrecurrentunet_torch.export import rt_bench
+    from tinyrecurrentunet_torch.signal.features import from_reference_layout
+
+    feats = from_reference_layout(feats_tcf)
+    graph_engines = rt_bench.engines(cfg, state_dict, feats)
+    bodies = rt_bench.engines(cfg, state_dict, feats, replay=False)
+    report = {}
+    for name, engine in graph_engines.items():
+        errs, counts = [], []
+        for _ in range(frames if name.endswith("per_frame") else 1):
+            cuda_gru.reset_launch_counts()
+            got = engine().clone()
+            torch.cuda.synchronize()
+            counts.append(cuda_gru.launch_counts())
+            errs.append(float((got - bodies[name]()).abs().max()))
+        if name.endswith("per_frame"):
+            errs.append(float((engine.carry - bodies[name].carry).abs().max()))
+        only = {**{k: 0 for k in counts[0]}, "gru_fwd": 3}
+        report[name] = {"calls": len(counts), "max_abs_err": max(errs), "launches_a_replay": counts[0]}
+        if max(errs) > GRAPH_ATOL or any(c != only for c in counts) or engine.graph is None:
+            raise AssertionError(f"rt_bench {name}, graph vs body: {report[name]}, launches {counts}")
+    log(f"[rt_bench] graph engines vs their bodies (tolerance {GRAPH_ATOL:.0e}): {json.dumps(report)}")
+    return report
 
 
 def serving_main_path(cfg, clip: np.ndarray, cuda_gru) -> dict:
@@ -2938,6 +3088,7 @@ def main() -> int:
     proc_summary, proc_counts = procedural_training(cfg, clip, cuda_gru)
     profile_row = profiled_training(train_cfg)
     dp_report, dp_counts = data_parallel_step(train_cfg)
+    nccl_report, _ = data_parallel_step(train_cfg, ranks=1, backend="nccl", graph_steps=DP_GRAPH_STEPS)
     ladder = scaling_ladder(cfg)
     if "oracle" not in quality["runs"]["float32"]:
         raise AssertionError("the quality result has no oracle report")
@@ -2992,6 +3143,11 @@ def main() -> int:
         # (3 a call of the full clip and of a frame), gru_bench's kernel calls
         "export_launches": export_counts["export_eager"]["gru_fwd"],
         "rt_bench_launches": export_counts["rt_bench"]["gru_fwd"],
+        # a replay of each of rt_bench's graph engines (full clip, a frame, int8)
+        "rt_bench_graph_launches": {k: v for k, v in export_summary["rt_bench"]["gru_fwd_per_call"].items()
+                                    if not k.startswith("torchscript")},
+        # phase 9 (a): a replayed validation pass of the trained flagship
+        "eval_graph_launches": proc_summary["validation"]["launches"]["replayed_call"]["gru_fwd"],
         "gru_bench_launches": export_counts["gru_bench"]["gru_fwd"],
         "gru_bench_max_abs_err": max(r["max_abs_err"] for r in export_summary["gru_bench"]),
     }
@@ -3026,6 +3182,10 @@ def main() -> int:
             # phase 9: the procedural bf16 run (3 steps), each rank of the 2-rank step
             "procedural_train_launches": proc_counts[name],
             "data_parallel_launches_per_rank": [c[name] for c in dp_counts],
+            # phase 9 (c): a replayed step of the one-rank NCCL group, the graph
+            # holding its collectives
+            "dp_graph_launches_per_rank": [gvb["calls"][-1]["launches"][name]
+                                           for gvb in nccl_report["graph_vs_body"]],
             # phase 10: the kernel A/B's run, 3 a step of its "always" row and
             # none of its "never" row
             "kernel_ab_launches": export_counts["kernel_ab"][name],
@@ -3075,7 +3235,8 @@ def main() -> int:
     log(json.dumps({"train_bf16": {k: v for k, v in bf16_summary.items() if k != "profile"},
                     "quality": {k: v for k, v in quality.items() if k != "runs"},
                     "train_users": {"procedural": proc_summary, "profile": profile_row,
-                                    "data_parallel": dp_report, "scaling": ladder},
+                                    "data_parallel": dp_report, "data_parallel_nccl_one_rank": nccl_report,
+                                    "scaling": ladder},
                     "export": export_summary, "shipped": shipped}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -5,12 +5,14 @@
 Builds the kernels, then runs chip_smoke.py's 2-rank check with as many
 ranks as the host has cards, each on its own card (torchrun's LOCAL_RANK,
 `--device cuda`) over NCCL: one train() step of config/proc16k.json in
-float32 at `--batch` clips a rank, held against the single-process step on
-the first card on the same clips in rank-major order (loss terms 1e-5 and
-grad_norm 1e-4 relative, parameters by phase 5's measure, the replicas
-bit-equal, 3 launches of each training kernel a rank), then both steps
-timed. Prints the report as one JSON line and the card's name and power
-limit; needs two cards or more.
+float32 at `--batch` clips a rank, its step captured into one CUDA graph a
+rank with the collectives inside and replayed (12 launches of each training
+kernel a rank: 3 warm-ups and the replay), held against the single-process
+step on the first card on the same clips in rank-major order (loss terms
+1e-5 and grad_norm 1e-4 relative, parameters by phase 5's measure, the
+replicas bit-equal); then each rank's replayed step and its body
+(`replay=False`) timed beside the single-process step. Prints the report as
+one JSON line and the card's name and power limit; needs two cards or more.
 """
 
 from __future__ import annotations

@@ -1112,3 +1112,151 @@ def test_a_failure_inside_train_capture_propagates(card, monkeypatch):
     with pytest.raises(RuntimeError, match="forced failure inside capture"):
         step(state, clean, noisy)
     assert step.captures == 0 and [slot.graph for slot in step._slots.values()] == [None]
+
+
+# ------------------------------------------------------- the eval step's graph
+# (tinyrecurrentunet_torch/train/step.py EvalStep: one CUDA graph a validation batch shape)
+
+GRAPH_ATOL = 1e-6  # graph vs body: the same kernels on the same buffers (chip_smoke.py)
+
+
+def _only_gru_fwd_counts(n):
+    return {**{k: 0 for k in cuda_gru.launch_counts()}, "gru_fwd": n}
+
+
+def test_replayed_eval_step_equals_the_body(card):
+    """The eval slot's first call launches 12 gru_fwd (3 warm-ups and the
+    replay), a replayed call 3 and nothing else; graph and body
+    (`replay=False`) give each loss term within GRAPH_ATOL, before and after
+    a train step on the same state (the replay reads the updated weights
+    and running statistics where they lie); the returned metrics are
+    copies."""
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_eval_step, make_train_step
+
+    cfg, clean, noisy = _tiny_training(False)
+    state = create_train_state(cfg, device=card)
+    train, evaluate = make_train_step(cfg), make_eval_step(cfg)
+    train(state, clean, noisy)
+    cuda_gru.reset_launch_counts()
+    first = evaluate(state, clean, noisy)
+    torch.cuda.synchronize()
+    assert cuda_gru.launch_counts() == _only_gru_fwd_counts(12)
+    for i in range(2):
+        cuda_gru.reset_launch_counts()
+        got = evaluate(state, clean, noisy)
+        torch.cuda.synchronize()
+        assert cuda_gru.launch_counts() == _only_gru_fwd_counts(3)
+        want = evaluate(state, clean, noisy, replay=False)
+        for k in want:
+            assert abs(float(got[k]) - float(want[k])) <= GRAPH_ATOL * max(1.0, abs(float(want[k]))), (i, k)
+        if i == 0:
+            train(state, clean, noisy)
+    assert not torch.equal(got["loss"], first["loss"])
+    slot = next(iter(evaluate._slots.values()))
+    assert all(first[k] is not slot.metrics[k] for k in first)
+    assert evaluate.captures == 1 and len(evaluate._slots) == 1
+
+
+def test_a_failure_inside_eval_capture_propagates(card, monkeypatch):
+    """No eager fallback: gru_fwd's wrapper failing while the eval call is
+    captured fails the call and leaves no graph in the slot."""
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_eval_step
+
+    plain = cuda_gru.gru_recurrence
+
+    def failing(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced failure inside capture")
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_gru, "gru_recurrence", failing)
+    cfg, clean, noisy = _tiny_training(False)
+    evaluate = make_eval_step(cfg)
+    with pytest.raises(RuntimeError, match="forced failure inside capture"):
+        evaluate(create_train_state(cfg, device=card), clean, noisy)
+    assert evaluate.captures == 0 and [slot.graph for slot in evaluate._slots.values()] == [None]
+
+
+# ------------------------------------------------------ rt_bench's graph engines
+
+
+def test_rt_bench_graph_engines_equal_their_bodies(card):
+    """Each engine of the port's model replayed against the same engine's
+    body: the full clip and the int8 engine within GRAPH_ATOL, the
+    per-frame engine frame by frame over 6 frames (and its carry), from the
+    same zero carry; 3 gru_fwd a replay."""
+    from tinyrecurrentunet_torch.export import rt_bench
+
+    cfg, sd, _ = _tiny_streaming()
+    feats = torch.from_numpy((np.random.default_rng(0).standard_normal((40, 257, 4)) * 0.3)
+                             .astype(np.float32)).to(card)
+    graphs_, bodies = rt_bench.engines(cfg, sd, feats), rt_bench.engines(cfg, sd, feats, replay=False)
+    for name in graphs_:
+        calls = 6 if name.endswith("per_frame") else 1
+        for _ in range(calls):
+            cuda_gru.reset_launch_counts()
+            got = graphs_[name]().clone()
+            torch.cuda.synchronize()
+            assert cuda_gru.launch_counts() == _only_gru_fwd_counts(3), name
+            want = bodies[name]()
+            assert float((got - want).abs().max()) <= GRAPH_ATOL, name
+        assert graphs_[name].graph is not None and bodies[name].graph is None
+    carry = graphs_["graph_per_frame"].carry, bodies["graph_per_frame"].carry
+    assert float((carry[0] - carry[1]).abs().max()) <= GRAPH_ATOL
+
+
+# --------------------------------------------- the data-parallel step over NCCL
+
+
+def test_one_rank_nccl_step_replays_and_equals_the_body(card, monkeypatch):
+    """A process group of one rank over NCCL takes the data-parallel path,
+    and its step replays one CUDA graph that holds the collectives: the
+    capturing call launches 12 of each training kernel, a replay 3; the
+    all-reduces of BatchNorm, the loss and `sum_gradients_` are issued
+    while capturing from the main thread, the sum-backward's from autograd's;
+    under torch.backends.cudnn.deterministic the replayed steps and the
+    body's (`replay=False`) from the same weights give the same bits, 3
+    steps on."""
+    import socket
+    import threading
+
+    import torch.distributed as dist
+
+    from tinyrecurrentunet_torch import parallel
+    from tinyrecurrentunet_torch.train.state import create_train_state
+    from tinyrecurrentunet_torch.train.step import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    seen = []
+    all_reduce = dist.all_reduce
+    monkeypatch.setattr(dist, "all_reduce", lambda *a, **k: seen.append(
+        (torch.cuda.is_current_stream_capturing(), threading.current_thread() is threading.main_thread()))
+        or all_reduce(*a, **k))
+    cfg, clean, noisy = _tiny_training(False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        assert parallel.is_distributed() and parallel.capturable_collectives()
+        states = [create_train_state(cfg, device=card) for _ in range(2)]
+        graph, body = make_train_step(cfg), make_train_step(cfg)
+        for i in range(3):
+            cuda_gru.reset_launch_counts()
+            _, got = graph(states[0], clean, noisy)
+            torch.cuda.synchronize()
+            assert graph.replayed and cuda_gru.launch_counts() == _train_kernels(12 if i == 0 else 3)
+            _, want = body(states[1], clean, noisy, replay=False)
+            assert not body.replayed
+            assert all(torch.equal(got[k], want[k]) for k in want), i
+            for a, b in zip(states[0].model.parameters(), states[1].model.parameters()):
+                assert torch.equal(a, b) and torch.equal(a.grad, b.grad), i
+            for a, b in zip(states[0].model.buffers(), states[1].model.buffers()):
+                assert torch.equal(a, b), i
+    finally:
+        dist.destroy_process_group()
+    captured = [main for capturing, main in seen if capturing]
+    assert captured.count(True) > 0 and captured.count(False) > 0
+    assert graph.captures == 1 and body.captures == 0

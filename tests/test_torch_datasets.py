@@ -26,6 +26,7 @@ from tinyrecurrentunet_torch import config as tconfig
 from tinyrecurrentunet_torch.data import ProceduralSpeechDataset as TProcedural
 from tinyrecurrentunet_torch.data.audio_io import write_wav
 from tinyrecurrentunet_torch.train import loop as tloop
+from tinyrecurrentunet_torch.train import step as tstep
 from tinyrecurrentunet_torch.train.state import create_train_state
 from tinyrecurrentunet_torch.utils.metrics import MetricsWriter
 from tinyrecurrentunet_torch.weights import variables_from_state_dict
@@ -98,13 +99,21 @@ def test_train_reads_the_corpus_on_disk_like_jax(tmp_path, monkeypatch, corpus):
         np.testing.assert_array_equal(a, b)
 
 
+class _NoEval(tstep.EvalStep):
+    """An eval step whose validation pass costs nothing: the slot's buffers,
+    a loss of 0."""
+
+    def __call__(self, state, clean, noisy, replay=True):
+        return {"loss": torch.tensor(0.0)}
+
+
 def test_procedural_cli_batches_are_jax_batches(tmp_path, monkeypatch):
     """`--procedural` (the device corpus path) against the JAX loop on the
     same procedural corpus: the same clips in the same order over two epochs."""
     seen_t, seen_j = [], []
     _record_batches(monkeypatch, tloop, seen_t)
     _record_batches(monkeypatch, jloop, seen_j)
-    monkeypatch.setattr(tloop, "make_eval_step", lambda cfg: lambda state, c, n: {"loss": torch.tensor(0.0)})
+    monkeypatch.setattr(tloop, "make_eval_step", _NoEval)
     monkeypatch.setattr(jloop, "create_train_state", lambda *a: JTrainState(
         step=0, apply_fn=None, params={"w": np.zeros(1)}, tx=None, opt_state=None))
     path = tmp_path / "tiny.json"

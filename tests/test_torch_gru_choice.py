@@ -88,21 +88,58 @@ def test_the_config_value_reaches_both_grus():
     assert tconfig.NetworkConfig().use_pallas_gru == "auto"
 
 
-def test_rt_bench_engines_report_the_jax_keys():
+def _rt_bench(replay=True):
     cfg = dataclasses.replace(_config(tconfig), onnx_config=tconfig.ExportConfig(time_step=12))
-    results = rt_bench.run_bench(cfg, random_state_dict(cfg), device="cpu", reps_hi=2, reps_lo=1,
-                                 frame_reps_hi=4, frame_reps_lo=1)
-    # the JAX bench's keys, with its engines jit and tflite renamed eager and torchscript
+    return rt_bench.run_bench(cfg, random_state_dict(cfg), device="cpu", reps_hi=2, reps_lo=1,
+                              frame_reps_hi=4, frame_reps_lo=1, replay=replay)
+
+
+def _check_rt_bench_keys(results):
+    # the JAX bench's keys, with its engines jit and tflite renamed graph and torchscript
     jax_keys = re.findall(r'results\["(\w+_(?:s|rtf))"\]', inspect.getsource(jrt_bench.run_bench))
-    names = {k.replace("jit_", "eager_").replace("tflite_", "torchscript_") for k in jax_keys}
+    names = {k.replace("jit_", "graph_").replace("tflite_", "torchscript_") for k in jax_keys}
     assert set(results) == names | {"clip_seconds", "frames", "gru_fwd_per_call"}
-    assert results["gru_fwd_per_call"] == {"eager_full_clip": 0, "eager_per_frame": 0, "int8_full_clip": 0,
+    assert results["gru_fwd_per_call"] == {"graph_full_clip": 0, "graph_per_frame": 0, "int8_full_clip": 0,
                                            "torchscript_full_clip": 0}  # the plain version on the CPU
     assert len(names) == 8
     assert results["frames"] == 12 and results["clip_seconds"] == 12 * 128 / 16000
     for key in names:
         assert np.isfinite(results[key]) and results[key] > 0, key
-    assert results["eager_streaming_rtf"] == pytest.approx(results["eager_per_frame_s"] / (128 / 16000))
+    assert results["graph_streaming_rtf"] == pytest.approx(results["graph_per_frame_s"] / (128 / 16000))
+
+
+def test_rt_bench_engines_report_the_jax_keys():
+    _check_rt_bench_keys(_rt_bench())
+
+
+def test_rt_bench_bodies_report_the_same_keys():
+    """`replay=False` times the same engines' bodies under the same keys."""
+    _check_rt_bench_keys(_rt_bench(replay=False))
+
+
+def test_rt_bench_engines_compute_the_model_on_their_static_tensors():
+    """The full-clip engines are the model (float32, int8-dequantized) on
+    the clip; the per-frame engine steps the model one frame a call from a
+    carry of zeros that it updates in place, wrapping around the clip: the
+    bits of the eager loop it replaces."""
+    from tinyrecurrentunet_torch.export import onnx_export
+    from tinyrecurrentunet_torch.export.quantize import int8_state_dict
+
+    cfg = dataclasses.replace(_config(tconfig), onnx_config=tconfig.ExportConfig(time_step=5))
+    sd = random_state_dict(cfg)
+    feats = torch.from_numpy((np.random.default_rng(0).standard_normal((5, 257, 4)) * 0.3).astype(np.float32))
+    port = rt_bench.engines(cfg, sd, feats)
+    model = onnx_export.float32_model(cfg, sd)
+    with torch.no_grad():
+        assert torch.equal(port["graph_full_clip"](), model(feats)[0])
+        int8 = onnx_export.float32_model(cfg, int8_state_dict(sd))
+        assert torch.equal(port["int8_full_clip"](), int8(feats)[0])
+        h = model.init_tgru_state(1, 257)
+        frame = port["graph_per_frame"]
+        for t in (0, 1, 2, 3, 4, 0, 1):
+            y, h = model(feats[t : t + 1], h)
+            assert torch.equal(frame(), y), t
+        assert torch.equal(frame.carry, h) and frame.t == 7
 
 
 def test_gru_bench_rows():

@@ -20,6 +20,12 @@ least 90% of the entries are, and everywhere within 2 lr(0) (the first
 Adam step of a near-zero gradient takes either sign). The two ranks'
 parameters, buffers, gradients and metrics are bit-equal.
 
+A gloo group of one process takes the same data-parallel path (its
+collectives run, over one rank) on the step's slots, by the body: its step
+equals the step without a group by the same measure (measured: loss terms
+4.4e-7, grad_norm 3.1e-7; the sums divided by the count where the means
+were taken).
+
 Negative controls, the same step with BatchNorm on rank-local statistics
 and with the summed gradients not divided by the world size, fail that
 comparison. The global-batch reductions (train-mode BatchNorm, spectral
@@ -294,6 +300,48 @@ def test_global_per_item_weights_equal_the_full_batch(ranks):
     assert np.ptp(want) > 0.5  # the weights differ across items
     for r, run in enumerate(ranks):
         np.testing.assert_allclose(run["arrays"]["reduce/per_item_weights"], want[3 * r : 3 * (r + 1)], rtol=1e-6)
+
+
+def test_a_group_of_one_takes_the_data_parallel_path_on_slots(monkeypatch):
+    """One process in a gloo group of one rank: BatchNorm's, the loss's and
+    the gradients' all-reduces run (each call counted; one of them is
+    `sum_gradients_`'s over every parameter), on the step's slot, by the
+    body (gloo's collectives are not captured, `replayed` False); the step
+    equals the step without a group on the same batch by
+    test_step_matches's measure against the single-process step."""
+    import torch.distributed as dist
+
+    from tinyrecurrentunet_torch.data.dataset import SyntheticPairDataset as TSynthetic
+
+    cfg = _config(tconfig)
+    items = [TSynthetic(2, CLIP_SEC, SR, seed=3).get(i) for i in range(2)]
+    clean, noisy = (torch.from_numpy(np.stack([x[k] for x in items])) for k in (0, 1))
+
+    def one_step():
+        state = create_train_state(cfg, device="cpu")
+        step = make_train_step(cfg)
+        state, metrics = step(state, clean, noisy)
+        model = state.model
+        return step, _port_step({k: float(v) for k, v in metrics.items()},
+                                {n: p.detach().numpy() for n, p in model.named_parameters()},
+                                {n: p.grad.numpy() for n, p in model.named_parameters()},
+                                {n: b.numpy() for n, b in model.named_buffers()})
+
+    _, want = one_step()
+    sizes = []
+    all_reduce = dist.all_reduce
+    monkeypatch.setattr(dist, "all_reduce", lambda t, *a, **k: sizes.append(t.numel()) or all_reduce(t, *a, **k))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        assert parallel.is_distributed() and parallel.world_size() == 1 and not parallel.capturable_collectives()
+        step, got = one_step()
+    finally:
+        dist.destroy_process_group()
+    n_params = sum(p.numel() for p in create_train_state(cfg, device="cpu").model.parameters())
+    assert step.replayed is False and len(step._slots) == 1
+    assert len(sizes) > 10 and sizes.count(n_params) == 1
+    _check_step(got, want, NORM_RTOL["single_step"])
+    np.testing.assert_allclose(got["stats"], want["stats"], rtol=0, atol=1e-5)
 
 
 def test_several_processes_need_data_parallel(monkeypatch, tmp_path):

@@ -5,6 +5,12 @@ narrow network, 0.25 s clips and one STFT bank, as in
 tests/test_torch_train.py. On a card the same slots hold a CUDA graph; its
 tests are in tests/test_torch_cuda.py.
 
+The eval step (`EvalStep`, one program a validation batch shape) the same
+way: against the JAX package's jitted eval step, every loss term within
+1e-5 relative from identical weights after one train step (measured <= 2e-7:
+the same float32 arithmetic summed in another order); against the eager
+eval call it replaces, bit for bit.
+
 Tolerances: against JAX those of
 tests/test_torch_train.py::test_one_train_step_matches_jax (loss terms 1e-4
 relative, grad_norm 2e-3, BatchNorm statistics and the carry 1e-5
@@ -36,6 +42,7 @@ from tinyrecurrentunet_torch.train.step import (
     _snapshot,
     clip_by_global_norm_,
     global_norm,
+    make_eval_step,
     make_train_step,
 )
 from tinyrecurrentunet_torch.utils.metrics import MetricsWriter
@@ -44,6 +51,7 @@ from tinyrecurrentunet_tpu import config as jconfig
 from tinyrecurrentunet_tpu.models import TRUNet as JTRUNet
 from tinyrecurrentunet_tpu.train.state import TrainState as JTrainState
 from tinyrecurrentunet_tpu.train.state import make_optimizer as jmake_optimizer
+from tinyrecurrentunet_tpu.train.step import make_eval_step as jmake_eval_step
 from tinyrecurrentunet_tpu.train.step import make_train_step as jmake_train_step
 
 torch.set_num_threads(2)
@@ -398,6 +406,125 @@ def test_the_loop_feeds_the_slot(tmp_path, monkeypatch, segment_sec):
     assert len(calls) == 6 and state.step == 6 and all(c["own_carry"] for c in calls)
     for first, second in zip(calls[::2], calls[1::2]):
         assert not first["carry"].any() and second["carry"].abs().max() > 0
+
+
+# --------------------------------------------------------------- the eval step
+
+EVAL_RTOL = 1e-5  # each loss term, port against JAX (measured <= 2e-7)
+
+
+def _eager_eval(cfg, state, clean, noisy) -> dict:
+    """The eval call as the port ran it before it had slots."""
+    state.model.eval()
+    with torch.no_grad():
+        _, loss_dict, _ = loss_fn(state.model, clean, noisy, Featurizer(cfg.featurizer), cfg.network,
+                                  cfg.train.loss_config)
+    return loss_dict
+
+
+def _trained_state(cfg):
+    """A state after one train step: its running statistics are not the
+    initial ones."""
+    state = create_train_state(cfg, device="cpu")
+    make_train_step(cfg)(state, *(torch.from_numpy(x) for x in _batch(seed=3)))
+    return state
+
+
+def test_eval_step_matches_the_jitted_jax_eval_step():
+    jcfg, tcfg = _config(jconfig), _config(tconfig)
+    state = _trained_state(tcfg)
+    variables = jax.tree_util.tree_map(jnp.array, variables_from_state_dict(state.model.state_dict()))
+    jmodel = JTRUNet(jcfg.network)
+    jstate = JTrainState.create(apply_fn=jmodel.apply, params=variables["params"],
+                                batch_stats=variables["batch_stats"], tx=jmake_optimizer(jcfg))
+    clean, noisy = _batch(3, seed=8)
+    got = make_eval_step(tcfg)(state, torch.from_numpy(clean), torch.from_numpy(noisy))
+    want = jmake_eval_step(jcfg, jmodel)(jstate, jnp.array(clean), jnp.array(noisy))
+    assert sorted(got) == sorted(want) and "loss" in got
+    for name in want:
+        np.testing.assert_allclose(float(got[name]), float(want[name]), rtol=EVAL_RTOL, err_msg=name)
+    assert not state.model.training
+
+
+def test_each_validation_shape_has_its_own_eval_slot_and_shapes_in_turns_do_not_cross():
+    cfg = _config(tconfig)
+    state = _trained_state(cfg)
+    evaluate = make_eval_step(cfg)
+    for batch, seed in ((2, 3), (3, 4), (2, 5), (3, 6)):
+        clean, noisy = (torch.from_numpy(x) for x in _batch(batch, seed=seed))
+        _assert_equal_metrics(evaluate(state, clean, noisy), _eager_eval(cfg, state, clean, noisy))
+    assert sorted(shape for _, shape, _ in evaluate._slots) == [(2, 4000), (3, 4000)]
+
+
+def test_an_eval_slot_reads_the_running_statistics_the_train_steps_left():
+    """The eval slot's call after train steps on the same state reads the
+    weights and statistics where they lie: the eager eval call's bits on
+    the updated state, in the slot it had."""
+    cfg = _config(tconfig)
+    state = create_train_state(cfg, device="cpu")
+    train, evaluate = make_train_step(cfg), make_eval_step(cfg)
+    clean, noisy = (torch.from_numpy(x) for x in _batch(seed=8))
+    before = evaluate(state, clean, noisy)
+    slot = evaluate.buffers(state, tuple(clean.shape), clean.dtype)
+    stats = [b.clone() for b in state.model.buffers()]
+    for seed in (3, 5):
+        train(state, *(torch.from_numpy(x) for x in _batch(seed=seed)))
+    assert not all(torch.equal(a, b) for a, b in zip(stats, state.model.buffers()))
+    after = evaluate(state, slot.clean, slot.noisy)
+    _assert_equal_metrics(after, _eager_eval(cfg, state, clean, noisy))
+    assert not torch.equal(after["loss"], before["loss"])
+    assert list(evaluate._slots.values()) == [slot]
+
+
+def test_a_reloaded_model_gets_a_new_eval_slot():
+    """Weights loaded by assignment move every parameter and buffer: the
+    next call builds the slot anew (on a card: captures anew) and gives the
+    eager eval call's bits on the new weights."""
+    cfg = _config(tconfig)
+    state, other = create_train_state(cfg, device="cpu"), _trained_state(cfg)
+    evaluate = make_eval_step(cfg)
+    clean, noisy = (torch.from_numpy(x) for x in _batch(seed=8))
+    evaluate(state, clean, noisy)
+    (key, slot), = evaluate._slots.items()
+    state.model.load_state_dict({k: v.clone() for k, v in other.model.state_dict().items()}, assign=True)
+    assert evaluate.buffers(state, tuple(clean.shape), clean.dtype) is not slot
+    _assert_equal_metrics(evaluate(state, clean, noisy), _eager_eval(cfg, other, clean, noisy))
+    assert evaluate._slots[key] is not slot and evaluate._slots[key].addresses is not None
+
+
+class _WatchedEval:
+    """An eval step that records, at each call, whether its inputs were the
+    slot's own buffers."""
+
+    def __init__(self, evaluate):
+        self.evaluate, self.calls = evaluate, []
+
+    def buffers(self, *args):
+        return self.evaluate.buffers(*args)
+
+    def __call__(self, state, clean, noisy):
+        slot = self.evaluate.buffers(state, tuple(clean.shape), clean.dtype)
+        self.calls.append(clean is slot.clean and noisy is slot.noisy)
+        return self.evaluate(state, clean, noisy)
+
+
+def test_the_loop_validates_through_the_eval_slot(tmp_path, monkeypatch):
+    """train() makes the validation batch once, in the eval slot's static
+    inputs, and passes those at every validation pass: the logged
+    validation loss is the eager eval call's on that batch."""
+    watched = []
+    make = tloop.make_eval_step
+    monkeypatch.setattr(tloop, "make_eval_step", lambda cfg: watched.append(_WatchedEval(make(cfg))) or watched[-1])
+    monkeypatch.setattr(tloop, "MetricsWriter", lambda *a, **k: MetricsWriter(*a, use_tensorboard=False, **k))
+    cfg = _config(tconfig, tmp_path / "ckpt")
+    valid = TSynthetic(3, CLIP_SEC, SR, seed=999)
+    state, metrics = tloop.train(cfg, TSynthetic(4, CLIP_SEC, SR), max_iters=2, log_dir=str(tmp_path / "logs"),
+                                 valid_dataset=valid, device="cpu")
+    (evaluate,) = watched
+    assert evaluate.calls == [True, True] and len(evaluate.evaluate._slots) == 1
+    slot = next(iter(evaluate.evaluate._slots.values()))
+    assert slot.clean.shape == (2, 4000)  # batch_size_per_device items of the 3
+    assert metrics["valid_loss"] == float(_eager_eval(cfg, state, slot.clean, slot.noisy)["loss"])
 
 
 # ------------------------------------------------------------ the Hann window

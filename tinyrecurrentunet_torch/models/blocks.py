@@ -12,9 +12,11 @@ BatchNorm follows flax (eps 1e-5, momentum 0.99), in flax's order
 running statistics. In training mode (`Module.train()`) it normalises by the
 batch mean and the biased batch variance E[x^2] - E[x]^2, clipped at 0, and
 updates the running statistics as ra = 0.99 ra + 0.01 batch. Under data
-parallelism (a process group of several ranks, `parallel/mesh.py`) the batch
-is the global one: the ranks all-reduce Σx, Σx² and the count, as flax's
-BatchNorm reduces over a batch sharded across a mesh.
+parallelism (an initialized process group, of any size, `parallel/mesh.py`)
+the batch is the global one: the ranks all-reduce Σx, Σx² and the count, as
+flax's BatchNorm reduces over a batch sharded across a mesh. The count is
+filled on the device, so that no host-to-device copy stands in a captured
+step.
 
 `dtype` (None or torch.bfloat16) is flax's compute dtype. Parameters and
 running statistics stay float32 whatever it is, and are cast at use. None
@@ -130,8 +132,8 @@ class BatchNorm(nn.Module):
             x = x.float()  # statistics and affine in float32
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            if parallel.world_size() > 1:
-                count = x.new_tensor([x.numel() // x.shape[-1]])
+            if parallel.is_distributed():
+                count = torch.full((1,), x.numel() // x.shape[-1], dtype=x.dtype, device=x.device)
                 sums = parallel.all_reduce_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
                 mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
             else:

@@ -6,8 +6,10 @@ from tinyrecurrentunet_torch.parallel.mesh import (  # noqa: F401
     barrier,
     batch_mean,
     broadcast_state_,
+    capturable_collectives,
     default_backend,
     initialize_distributed,
+    is_distributed,
     loader_shard,
     local_device,
     rank,

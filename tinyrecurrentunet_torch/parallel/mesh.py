@@ -31,6 +31,13 @@ but drops the other ranks' share from the statistics' gradient, which is
 wrong for BatchNorm (tests/test_torch_parallel.py holds both the factor and
 the statistics against the JAX mesh step).
 
+The data-parallel path is taken wherever a process group is initialized
+(`is_distributed`), a group of one rank included, as a JAX mesh of one
+device is still the mesh program: its collectives run, over one rank.
+They can be captured into a CUDA graph where the backend is NCCL; gloo
+passes through the host, and a step over a gloo group runs uncaptured
+(`capturable_collectives`).
+
 A loader shard is `num_shards=world_size(), shard_index=rank()`: rank r
 reads the items perm[r::W] of the shared per-epoch permutation, and the
 global batch is the ranks' batches stacked rank-major, the order of JAX's
@@ -88,12 +95,24 @@ def initialize_distributed(cfg: DistConfig, backend: str) -> int:
     return world_size()
 
 
+def is_distributed() -> bool:
+    """Whether a process group is initialized: the data-parallel path, at
+    any world size."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def capturable_collectives() -> bool:
+    """Whether this process's collectives can go into a CUDA graph: none
+    (no group), or an NCCL group's; a gloo group's pass through the host."""
+    return not is_distributed() or dist.get_backend() == "nccl"
+
+
 def world_size() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+    return dist.get_world_size() if is_distributed() else 1
 
 
 def rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+    return dist.get_rank() if is_distributed() else 0
 
 
 def loader_shard() -> dict:
@@ -102,7 +121,7 @@ def loader_shard() -> dict:
 
 
 def barrier():
-    if world_size() > 1:
+    if is_distributed():
         dist.barrier()
 
 
@@ -124,7 +143,7 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over the ranks, on every rank; differentiable, its
     backward the same sum of the upstream gradient (see the module
     docstring for the factor W this gives)."""
-    return _AllReduceSum.apply(t) if world_size() > 1 else t
+    return _AllReduceSum.apply(t) if is_distributed() else t
 
 
 def batch_mean(t: torch.Tensor, across_ranks: bool = False) -> torch.Tensor:
@@ -140,12 +159,11 @@ def sum_gradients_(tensors: list[torch.Tensor]):
     """Each rank's gradients, W times its share of the global batch's
     gradient (module docstring), become the global gradient: one all-reduce
     of them all, divided by W. Every rank receives the same sum."""
-    world = world_size()
-    if world == 1:
+    if not is_distributed():
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat)
-    flat /= world
+    flat /= world_size()
     offset = 0
     for t in tensors:
         t.copy_(flat[offset : offset + t.numel()].view_as(t))
@@ -155,7 +173,7 @@ def sum_gradients_(tensors: list[torch.Tensor]):
 @torch.no_grad()
 def broadcast_state_(module: torch.nn.Module):
     """Rank 0's parameters and buffers on every rank."""
-    if world_size() == 1:
+    if not is_distributed():
         return
     for t in list(module.parameters()) + list(module.buffers()):
         dist.broadcast(t, src=0)

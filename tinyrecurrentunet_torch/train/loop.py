@@ -9,13 +9,13 @@ every `iters_per_ckpt` and at the end.
   cfg.trainset, subset="training")`; the CLI also trains on the synthetic
   set (`--synthetic`) and on the procedural speech corpus (`--procedural`,
   how the shipped flagship was trained), each with a held-out validation set.
-- A `device_cacheable` dataset (synthetic, procedural) in a single process
-  is uploaded to the device once (`upload_corpus`; the procedural corpus is
+- A `device_cacheable` dataset (synthetic, procedural) outside a process
+  group is uploaded to the device once (`upload_corpus`; the procedural corpus is
   synthesized first, ~20 ms an item on the host, and the loop logs that
   time) and each batch is gathered there, in the order of the per-epoch
   permutation default_rng((seed, epoch)), as the JAX loop does: both see the
   same batches in the same order. Other datasets, and every dataset under
-  data parallelism, go through `DataLoader`.
+  data parallelism (a group of one rank included), go through `DataLoader`.
 - Data parallelism (`data_parallel`, `--data_parallel`): one process per
   card, started by torchrun (`python -m torch.distributed.run`) or, one per
   host, from `cfg.dist`. Rank r reads the shard `num_shards=W,
@@ -33,7 +33,9 @@ and each step after the first of a batch shape is one replay of the step's
 CUDA graph (`train/step.py`): the device corpus's batches are gathered
 straight into the step's static inputs, the loader's are copied in, and the
 TBPTT carry is zeroed in the step's own carry buffer at each batch. The
-validation pass stays eager between the replays.
+validation batch is made once, in the eval step's static inputs
+(`validation_batch`), and a validation pass is one replay of the eval
+step's graph and the read of its loss.
 The model computes in `optimization.train_compute_dtype` where the config
 sets it (bf16 in the shipped configs; `train.state.train_network_config`),
 the validation loss too, as in the JAX loop; parameters, optimizer state and
@@ -82,6 +84,23 @@ def upload_corpus(dataset, seed: int, device) -> list[torch.Tensor]:
     rng = np.random.default_rng(seed)
     items = [dataset.get(i, rng) for i in range(len(dataset))]
     return [torch.from_numpy(np.stack([x[k] for x in items])).to(device) for k in (0, 1)]
+
+
+def validation_batch(eval_fn, state, valid_dataset, n_items: int, world: int = 1) -> tuple:
+    """The validation batch, made once in `eval_fn`'s static inputs for
+    `state` (`EvalStep.buffers`): the first `n_items` items of
+    `valid_dataset` (at most all of them), cut to a multiple of the `world`
+    ranks as the JAX loop cuts it for its mesh, drawn with default_rng(1234)
+    and cut to the shortest item. Returns (clean, noisy)."""
+    vrng = np.random.default_rng(1234)
+    n_items = min(len(valid_dataset), n_items)
+    n_items = max(n_items - n_items % world, world)
+    items = [valid_dataset.get(i, vrng) for i in range(n_items)]
+    vlen = min(len(c) for c, _, _ in items)
+    slot = eval_fn.buffers(state, (n_items, vlen))
+    for buf, k in ((slot.clean, 0), (slot.noisy, 1)):
+        buf.copy_(torch.from_numpy(np.stack([x[k][:vlen] for x in items]).astype(np.float32)))
+    return slot.clean, slot.noisy
 
 
 def train(
@@ -138,22 +157,13 @@ def train(
         seg_len = max(int(opt.tbptt_segment_sec * cfg.trainset.sample_rate) // hop, 1) * hop
     step_fn = make_train_step(cfg, with_carry=seg_len > 0)
 
-    # rank 0 evaluates the validation batch of the global batch's size, cut
-    # to a multiple of the ranks as the JAX loop cuts it for its mesh
+    # rank 0 evaluates the validation batch of the global batch's size
     eval_fn = valid_batch = None
     if valid_dataset is not None and lead:
         eval_fn = make_eval_step(cfg)
-        vrng = np.random.default_rng(1234)
-        n_items = min(len(valid_dataset), batch_size * world)
-        n_items = max(n_items - n_items % world, world)
-        items = [valid_dataset.get(i, vrng) for i in range(n_items)]
-        vlen = min(len(c) for c, _, _ in items)
-        valid_batch = [
-            torch.from_numpy(np.stack([x[k][:vlen] for x in items]).astype(np.float32)).to(device)
-            for k in (0, 1)
-        ]
+        valid_batch = validation_batch(eval_fn, state, valid_dataset, batch_size * world, world)
 
-    if getattr(dataset, "device_cacheable", False) and world == 1:
+    if getattr(dataset, "device_cacheable", False) and not parallel.is_distributed():
         t0 = time.perf_counter()
         corpus = upload_corpus(dataset, opt.seed, device)
         print(f"device corpus: {len(dataset)} items made and uploaded in {time.perf_counter() - t0:.1f} s, "

@@ -50,15 +50,35 @@ counted on the host. The metrics are returned as copies of the static ones.
 - `step(..., replay=False)` runs the step's body uncaptured on the slot
   (the card tests and chip_smoke.py hold and time the graph against it). On
   the CPU every call runs the body on the slot. A capture or a replay that
-  fails raises: nothing falls back to the body.
-- Under data parallelism (a process group of several ranks,
-  `parallel/mesh.py`) the step stays eager, with no slot: its collectives
-  (gloo, or NCCL outside a capture) run launch by launch. Each rank passes
-  its shard of the global batch, and the step is the global batch's, as the
-  JAX step over a mesh: the loss and its terms are the global batch's on
-  every rank, the gradients are summed across ranks, then the global norm,
-  the clip and AdamW run on every rank alike, so the replicas stay
-  bit-equal.
+  fails raises: nothing falls back to the body. `step.replayed` says which
+  of the two the last call ran.
+- Under data parallelism (an initialized process group, a group of one rank
+  included, `parallel/mesh.py`) the step uses its slots alike, each rank
+  copying its shard of the global batch into the slot's static inputs, and
+  is the global batch's step, as the JAX step over a mesh: the loss and its
+  terms are the global batch's on every rank, the gradients are summed
+  across ranks, then the global norm, the clip and AdamW run on every rank
+  alike, so the replicas stay bit-equal. Over NCCL on a card the graph
+  holds the whole rank step with its collectives (BatchNorm's and the
+  loss's all-reduces, the sum-backward all-reduces, `sum_gradients_`);
+  every rank captures at the same call, after warm-ups that also make the
+  communicator, so the collectives stay matched. Over gloo, whose
+  collectives pass through the host, every call runs the body on the slot:
+  a choice made by the backend (`parallel.capturable_collectives`), not by
+  a failure.
+
+`make_eval_step(cfg)` returns the counterpart of the JAX package's jitted
+eval step, `EvalStep`: (state, clean, noisy) -> loss_dict with the model in
+eval mode (BatchNorm on its running statistics, nothing updated, no
+gradient), one program a validation batch shape. Its slots, one a (model,
+batch shape, dtype), hold static `clean` and `noisy` and on a card the CUDA
+graph of the whole eval call (featurize, TRUNet with its three `gru_fwd`,
+PHM, iSTFT, the loss terms) in the eval step's own memory pool, captured at
+the slot's first call after 3 warm-ups and replayed after. The graph reads
+the parameters and the running statistics where they lie, so a replay after
+train steps sees their latest values; a slot records their addresses and is
+built anew where one has moved. It returns copies of its static metrics;
+`replay=False` runs the body on the slot; on the CPU every call does.
 """
 
 from __future__ import annotations
@@ -124,12 +144,16 @@ def _optimizer_tensors(optimizer: torch.optim.Optimizer):
             yield from (state[k] for k in sorted(state) if isinstance(state[k], torch.Tensor))
 
 
+def _model_addresses(model: torch.nn.Module) -> tuple:
+    """The address of every parameter and buffer of `model`: what a captured
+    eval call reads."""
+    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
+
+
 def _addresses(state: TrainState) -> tuple:
     """The address of every tensor a captured step reads or writes in place."""
-    model = state.model
-    tensors = (*model.parameters(), *(p.grad for p in model.parameters()), *model.buffers(),
-               *_optimizer_tensors(state.optimizer))
-    return tuple(t.data_ptr() for t in tensors)
+    tensors = (*(p.grad for p in state.model.parameters()), *_optimizer_tensors(state.optimizer))
+    return _model_addresses(state.model) + tuple(t.data_ptr() for t in tensors)
 
 
 def _snapshot(state: TrainState, slot: _Slot):
@@ -155,6 +179,15 @@ def _snapshot(state: TrainState, slot: _Slot):
     return restore
 
 
+def _copy_in(pairs):
+    """Each given tensor into its static buffer, unless it is that buffer."""
+    for buf, given in pairs:
+        if given is not None and given is not buf:
+            if given.shape != buf.shape:
+                raise ValueError(f"input of shape {tuple(given.shape)}, expected {tuple(buf.shape)}")
+            buf.copy_(given)
+
+
 class TrainStep:
     """The train step of `make_train_step`: a callable holding its slots."""
 
@@ -166,21 +199,17 @@ class TrainStep:
         self._slots: dict[tuple, _Slot] = {}
         self._pool = None  # the graph memory pool of all the slots, made at the first capture
         self.captures = 0
+        self.replayed = None  # whether the last call replayed a graph (else it ran the body)
 
     def __call__(self, state: TrainState, clean, noisy, tgru_h0=None, replay: bool = True):
         if self.with_carry != (tgru_h0 is not None):
             raise TypeError("a TGRU carry is passed exactly when the step was made with_carry")
         _ensure_grads(state.model)
-        if parallel.world_size() > 1:
-            return self._eager(state, clean, noisy, tgru_h0)
         slot = self.buffers(state, tuple(clean.shape), clean.dtype)
-        for buf, given in ((slot.clean, clean), (slot.noisy, noisy), (slot.carry, tgru_h0)):
-            if given is not None and given is not buf:
-                if given.shape != buf.shape:
-                    raise ValueError(f"input of shape {tuple(given.shape)}, expected {tuple(buf.shape)}")
-                buf.copy_(given)
+        _copy_in(((slot.clean, clean), (slot.noisy, noisy), (slot.carry, tgru_h0)))
         set_learning_rate(state.optimizer, self.schedule(state.step))
-        if replay and slot.clean.device.type == "cuda":
+        self.replayed = replay and slot.clean.device.type == "cuda" and parallel.capturable_collectives()
+        if self.replayed:
             with torch.cuda.device(slot.clean.device):
                 if slot.graph is None:
                     self._capture(state, slot)
@@ -222,7 +251,7 @@ class TrainStep:
         state.optimizer.zero_grad(set_to_none=False)
         loss, loss_dict, tgru_h = loss_fn(
             model, clean, noisy, self.featurizer, self.cfg.network, self.cfg.train.loss_config,
-            tgru_h0=tgru_h0, across_ranks=parallel.world_size() > 1,
+            tgru_h0=tgru_h0, across_ranks=parallel.is_distributed(),
         )
         loss.backward()
         grads = [p.grad for p in model.parameters()]
@@ -258,13 +287,6 @@ class TrainStep:
         slot.memory["reserved_after_capture"] = torch.cuda.memory_reserved()
         self.captures += 1
 
-    def _eager(self, state: TrainState, clean, noisy, tgru_h0):
-        """The step of a data-parallel rank, launch by launch."""
-        set_learning_rate(state.optimizer, self.schedule(state.step))
-        metrics, tgru_h = self._run(state, clean, noisy, tgru_h0)
-        state.step += 1
-        return (state, metrics, tgru_h.detach()) if self.with_carry else (state, metrics)
-
 
 def make_train_step(cfg: Config, with_carry: bool = False, featurizer=None) -> TrainStep:
     """`featurizer` makes the noisy input's features (default
@@ -272,20 +294,85 @@ def make_train_step(cfg: Config, with_carry: bool = False, featurizer=None) -> T
     return TrainStep(cfg, with_carry, featurizer)
 
 
-def make_eval_step(cfg: Config):
-    """(state, clean, noisy) -> loss_dict, with the model in eval mode (BatchNorm
-    on its running statistics, nothing updated). Eager: it runs once every
-    `iters_per_valid` iterations, between replays of the train step."""
-    featurizer = Featurizer(cfg.featurizer)
-    loss_cfg = cfg.train.loss_config
+@dataclasses.dataclass
+class _EvalSlot:
+    """One (model, batch shape, dtype) of the eval step: the static inputs,
+    on a card the graph, its launches and static metrics; the addresses of
+    the parameters and buffers the slot was built on."""
+
+    model: torch.nn.Module  # held, so that the key's id stays its
+    clean: torch.Tensor
+    noisy: torch.Tensor
+    graph: torch.cuda.CUDAGraph | None = None
+    launches: dict | None = None
+    metrics: dict | None = None
+    addresses: tuple | None = None
+
+
+class EvalStep:
+    """The eval step of `make_eval_step`: a callable holding its slots."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.featurizer = Featurizer(cfg.featurizer)
+        self._slots: dict[tuple, _EvalSlot] = {}
+        self._pool = None  # the graph memory pool of all the slots, made at the first capture
+        self.captures = 0
+
+    def __call__(self, state: TrainState, clean, noisy, replay: bool = True) -> dict:
+        slot = self.buffers(state, tuple(clean.shape), clean.dtype)
+        _copy_in(((slot.clean, clean), (slot.noisy, noisy)))
+        if replay and slot.clean.device.type == "cuda":
+            with torch.cuda.device(slot.clean.device):
+                if slot.graph is None:
+                    self._capture(slot)
+                state.model.eval()
+                slot.graph.replay()
+            cuda_gru.add_launches(slot.launches)
+            metrics = {k: v.clone() for k, v in slot.metrics.items()}
+        else:
+            metrics = self._body(slot)
+        if slot.addresses is None:
+            slot.addresses = _model_addresses(state.model)
+        return metrics
+
+    def buffers(self, state: TrainState, batch_shape: tuple, dtype=torch.float32) -> _EvalSlot:
+        """The slot of `state`'s model and (B, L) batches of `dtype`: its
+        static `clean` and `noisy` on the model's device, made at its first
+        use; built anew where a parameter or buffer has moved."""
+        model = state.model
+        key = (id(model), tuple(batch_shape), dtype)
+        slot = self._slots.get(key)
+        if slot is not None and slot.addresses is not None and slot.addresses != _model_addresses(model):
+            slot = None
+        if slot is None:
+            device = next(model.parameters()).device
+            slot = _EvalSlot(model, torch.zeros(batch_shape, dtype=dtype, device=device),
+                             torch.zeros(batch_shape, dtype=dtype, device=device))
+            self._slots[key] = slot
+        return slot
 
     @torch.no_grad()
-    def step(state: TrainState, clean, noisy):
-        state.model.eval()
-        _, loss_dict, _ = loss_fn(state.model, clean, noisy, featurizer, cfg.network, loss_cfg)
+    def _body(self, slot: _EvalSlot) -> dict:
+        """The eval call on the slot's inputs."""
+        slot.model.eval()
+        _, loss_dict, _ = loss_fn(slot.model, slot.clean, slot.noisy, self.featurizer, self.cfg.network,
+                                  self.cfg.train.loss_config)
         return loss_dict
 
-    return step
+    def _capture(self, slot: _EvalSlot):
+        """The slot's graph: 3 warm-up calls (they update nothing), one
+        captured, in the eval step's pool."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        slot.graph, slot.launches, slot.metrics = graphs.capture(lambda: self._body(slot), pool=self._pool)
+        self.captures += 1
+
+
+def make_eval_step(cfg: Config) -> EvalStep:
+    """(state, clean, noisy) -> loss_dict, with the model in eval mode
+    (BatchNorm on its running statistics, nothing updated): `EvalStep`."""
+    return EvalStep(cfg)
 
 
 def current_learning_rate(cfg: Config, step_count: int) -> float:
