@@ -167,7 +167,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1,602-frame serving shapes), held against its plain version and timed
    beside its bound and its PyTorch call. Part (e) runs right
    after phase 4, before any profiled training step: after those,
-   torch.profiler lost the kernel records of whole readings.
+   torch.profiler lost the kernel records of whole readings;
+12. drive the training CLI as users start it, in processes of its own under
+   their own time limit: `python -m tinyrecurrentunet_torch.train.loop`
+   with config/proc16k.json as shipped at 16 clips a rank, validation and
+   checkpoints every 2 iterations, `--procedural --procedural_items 64
+   --data_parallel` and no launcher, so over every card this process sees
+   (one card: a group of one over NCCL, the collectives inside the step's
+   graph): `--max_iters 5` (a validation pass, checkpoints 2 and 4), then
+   `--max_iters 6`, which must resume from checkpoint 4; every rank must
+   exit 0 within 150 s, rank 0 log the ranks and a global batch of 16 x
+   them, and each rank's process launch each training kernel 3 times a step
+   and 9 more (a slot's first call), rank 0 `gru_fwd` 3 times a validation
+   pass and 9 more; the ranks, each run's seconds and the seconds from the
+   last step to each rank's exit.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -175,6 +188,7 @@ The line before the last is {"kernels": [...]}, the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -375,6 +389,16 @@ DP_NORM_RTOL = 1e-4
 # the share the data-parallel step matches in sign and size (1.0 and 0.9994
 # at the tests' width on the CPU, 2 and 4 ranks; 0.9991 at 4 cards x 16 clips)
 DP_SIGN_AGREEMENT = 0.99
+# Phase 12: the training CLI as users start it, `--data_parallel` with no
+# launcher over every card the process sees: the flagship as shipped at
+# CLI_BATCH clips a rank on a CLI_ITEMS-item procedural corpus, validation
+# and checkpoints every 2 iterations; a first run of CLI_ITERS[0] iterations
+# (0-4: checkpoints 2 and 4), then one of CLI_ITERS[1] that resumes from 4.
+# Each run ends within CLI_TIMEOUT_S or fails the phase.
+CLI_BATCH = 16
+CLI_ITEMS = 64
+CLI_ITERS = (5, 6)
+CLI_TIMEOUT_S = 150
 # The training kernels' names in a trace (any path of each)
 TRAINING_KERNEL_NAMES = {
     "gru_fwd_train": r"gru_fwd_resident_kernel|gru_fwd_train_kernel",
@@ -2423,6 +2447,197 @@ def check_dp_graph_vs_body(run: dict, steps: int):
         raise AssertionError(f"rank {run['rank']}: graph vs body {report}")
 
 
+def cli_run(commands: list, cwd: str, timeout: float) -> dict:
+    """Start each launcher command (argv, extra environment) in a session of
+    its own and time-stamp its output lines until every launcher has
+    exited, or end each session at `timeout` (SIGTERM, which a launcher
+    passes to its ranks, then SIGKILL 10 s later). A launcher exits after
+    every rank it started. Returns the exit codes, the lines and the
+    seconds until the last launcher exited."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=cwd, env={**os.environ, **env}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+             for argv, env in commands]
+    lines = [[] for _ in procs]
+
+    def read(i):
+        for line in procs[i].stdout:
+            lines[i].append((time.perf_counter() - t0, line.rstrip("\n")))
+
+    readers = [threading.Thread(target=read, args=(i,), daemon=True) for i in range(len(procs))]
+    for thread in readers:
+        thread.start()
+    codes, timed_out = [], False
+    for proc in procs:
+        try:
+            codes.append(proc.wait(timeout=max(t0 + timeout - time.perf_counter(), 0)))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+            timed_out = True
+    wall = time.perf_counter() - t0
+    if timed_out:
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            for proc in procs:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, sig)
+            if sig == signal.SIGTERM:
+                time.sleep(10)
+        for proc in procs:
+            proc.wait()
+    for thread in readers:
+        thread.join(timeout=10)
+    return {"rc": codes, "timed_out": timed_out, "wall_s": wall, "lines": lines}
+
+
+def cli_report(run: dict) -> dict:
+    """What a CLI run's output says: the iterations rank 0 logged and their
+    times, validation passes, checkpoints announced (and by which
+    launcher), a resume, the world size and global batch it logged, the
+    ranks that ended (each rank's `rank r ended` line, with its GRU kernel
+    launches), seconds a step between the logged iterations after the
+    first, and the seconds from the last step's line (an iteration logged or
+    a checkpoint saved) to each rank's end and to the launchers' exit."""
+    report = {"saved": [], "saved_by_launcher": [], "valid": 0, "resumed": None, "world": None,
+              "global_batch": None, "launches": {}}
+    logged, ended, last = {}, {}, None
+    for i, launcher in enumerate(run["lines"]):
+        for t, line in launcher:
+            # the ranks write to one pipe at once: a line may hold pieces of several
+            for m in re.finditer(r"rank (\d+) ended(?:: GRU kernel launches (\{[^{}]*\}))?", line):
+                ended[int(m.group(1))] = t
+                if m.group(2):
+                    report["launches"][int(m.group(1))] = json.loads(m.group(2))
+            if m := re.search(r"data parallel: (\d+) ranks .* global batch (\d+)", line):
+                report["world"], report["global_batch"] = int(m.group(1)), int(m.group(2))
+            if m := re.search(r"resumed from checkpoint at iteration (\d+)", line):
+                report["resumed"] = int(m.group(1))
+            step = False
+            if m := re.search(r"iteration: (\d+)\s", line):
+                logged[int(m.group(1))] = t
+                report["valid"] += "valid:" in line
+                step = True
+            if m := re.search(r"model at iteration (\d+) is saved", line):
+                report["saved"].append(int(m.group(1)))
+                report["saved_by_launcher"].append(i)
+                step = True
+            if step:
+                last = t if last is None else max(last, t)
+    its = sorted(logged)
+    return {
+        **report, "iterations_logged": its, "rc": run["rc"], "timed_out": run["timed_out"],
+        "wall_s": run["wall_s"], "first_iteration_s": logged[its[0]] if its else None,
+        "s_per_step": (logged[its[-1]] - logged[its[1]]) / (its[-1] - its[1]) if len(its) > 2 else None,
+        "ranks": sorted(ended),
+        "last_step_to_end_s": {r: None if last is None else ended[r] - last for r in sorted(ended)},
+        "last_step_to_exit_s": None if last is None or run["timed_out"] else run["wall_s"] - last,
+    }
+
+
+def cli_failures(report: dict, iters: int, world: int, resumed_from: int | None, saves: list) -> list:
+    """What a CLI run (cli_report) misses against the contract: every
+    launcher exited 0 within the time limit, ranks 0 to `world` - 1 each
+    printed its end; `world` ranks logged
+    with a global batch of `world` x CLI_BATCH; the checkpoints `saves` and
+    the final one (iteration `iters` - 1) announced once each, by process
+    0's launcher, and one file each in the directory; from scratch
+    (`resumed_from` None) a validation pass logged, else the resume; each
+    rank's kernel launches: of each training kernel 3 a step of its run and
+    9 more (the slot's 3 warm-ups in its first call), of gru_fwd on rank 0
+    3 a validation pass and 9 more, on the others none."""
+    bad = []
+    steps = iters - 1 - (-1 if resumed_from is None else resumed_from)
+    for r in range(world):
+        want = {k: 3 * steps + 9 for k in ("gru_fwd_train", "gru_bwd", "gru_dw_partial", "gru_dw_sum")}
+        want["gru_fwd"] = 3 * report["valid"] + 9 if r == 0 and report["valid"] else 0
+        if report["launches"].get(r) != want:
+            bad.append(f"rank {r} launched {report['launches'].get(r)}, expected {want}")
+    if report["timed_out"] or any(report["rc"]):
+        bad.append(f"exit: rc {report['rc']}, timed out {report['timed_out']}")
+    if report["ranks"] != list(range(world)) or report["world"] != world or \
+            report["global_batch"] != world * CLI_BATCH:
+        bad.append(f"ranks ended {report['ranks']}, logged world {report['world']} and global batch "
+                   f"{report['global_batch']}; expected {world} and {world * CLI_BATCH}")
+    announced = sorted(saves + [iters - 1])
+    if sorted(report["saved"]) != announced or any(report["saved_by_launcher"]):
+        bad.append(f"checkpoints announced {report['saved']} by launchers {report['saved_by_launcher']}, "
+                   f"expected {announced} by launcher 0")
+    if not {f"{k}.pt" for k in announced} <= set(report["checkpoints"]) or \
+            not all(re.fullmatch(r"\d+\.pt", name) for name in report["checkpoints"]):
+        bad.append(f"checkpoint files {report['checkpoints']}")
+    if resumed_from is None and report["valid"] < 1:
+        bad.append("no validation pass logged")
+    if report["resumed"] != resumed_from:
+        bad.append(f"resumed from {report['resumed']}, expected {resumed_from}")
+    return bad
+
+
+def cli_config(cfg, path: str, **dist) -> str:
+    """`cfg` at CLI_BATCH clips a rank, validation and checkpoints every 2
+    iterations (and `dist` fields, if any), written to `path` as JSON."""
+    from tinyrecurrentunet_torch.config import config_to_dict
+
+    log = dataclasses.replace(cfg.train.log, iters_per_valid=2, iters_per_ckpt=2)
+    cfg = with_batch(cfg, CLI_BATCH)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log=log),
+                              dist=dataclasses.replace(cfg.dist, **dist))
+    with open(path, "w") as f:
+        json.dump(config_to_dict(cfg), f)
+    return path
+
+
+def cli_command(cfg_path: str, iters: int, items: int = CLI_ITEMS, launcher: tuple = ()) -> list:
+    """The training CLI as users start it, `--data_parallel`."""
+    return [sys.executable, *launcher, "-m", "tinyrecurrentunet_torch.train.loop", "-c", cfg_path, "--procedural",
+            "--procedural_items", str(items), "--data_parallel", "--max_iters", str(iters)]
+
+
+def cli_resume_pair(commands_for, workdir: str, ckpt_dir: str, world: int,
+                    timeout: float = CLI_TIMEOUT_S) -> tuple[list, list]:
+    """Two runs of the CLI in `workdir` (`commands_for(iters)` gives the
+    launcher commands), checkpoints in `ckpt_dir`: CLI_ITERS[0] iterations
+    from scratch, then CLI_ITERS[1] resumed from the first's last
+    checkpoint. Returns their reports and what each misses
+    (`cli_failures`); a run that misses anything keeps the last 40 lines of
+    each launcher's output."""
+    first, second = CLI_ITERS
+    reports, failures = [], []
+    for iters, resumed_from, saves in ((first, None, [2, 4]), (second, first - 1, [])):
+        run = cli_run(commands_for(iters), workdir, timeout)
+        report = cli_report(run)
+        report["checkpoints"] = sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else []
+        bad = cli_failures(report, iters, world, resumed_from, saves)
+        if bad:
+            report["output_tail"] = [[line for _, line in launcher][-40:] for launcher in run["lines"]]
+        reports.append(report)
+        failures.append(bad)
+    return reports, failures
+
+
+def cli_data_parallel(cfg) -> dict:
+    """Phase 12: the training CLI, `--data_parallel` with no launcher, over
+    every card this process sees (one card: a group of one over NCCL, the
+    collectives in the step's graph), twice: CLI_ITERS[0] iterations, then
+    CLI_ITERS[1] resumed from the first's checkpoint 4."""
+    cards = torch.cuda.device_count()
+    workdir = phase_workdir("chip_smoke_cli")
+    cfg_path = cli_config(cfg, os.path.join(workdir, "proc16k_cli.json"))
+    env = {"PYTHONPATH": REPO}
+    ckpt_dir = os.path.join(workdir, "ckpt", cfg.train.exp_path, "checkpoint")
+    reports, failures = cli_resume_pair(lambda iters: [(cli_command(cfg_path, iters), env)], workdir, ckpt_dir,
+                                        cards)
+    row = {"cards": cards, "runs": [{k: v for k, v in r.items() if k != "output_tail"} for r in reports],
+           "nvidia_smi": nvidia_smi_line()}
+    log(f"[cli] {json.dumps(row)}")
+    for report, bad in zip(reports, failures):
+        if bad:
+            raise AssertionError(f"the training CLI over {cards} card(s): {bad}\n" +
+                                 "\n".join("\n".join(t) for t in report.get("output_tail") or []))
+    return row
+
+
 def scaling_ladder(cfg) -> list:
     """Phase 9 (e): train/scaling.py's rows in bf16 at SCALING_BATCHES."""
     from tinyrecurrentunet_torch.train.scaling import measure_or_oom
@@ -3120,6 +3335,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"[shipped] phase 11 in {time.time() - t11:.1f} s: {json.dumps(part_s)}")
 
+    # 12. the training CLI over every visible card, --data_parallel with no
+    # launcher, then resumed
+    t12 = time.time()
+    torch.cuda.empty_cache()
+    cli_row = cli_data_parallel(cfg)
+    log(f"[cli] phase 12 in {time.time() - t12:.1f} s")
+
     kernel = {
         "name": "gru_fwd",
         "route": "cuda",
@@ -3149,6 +3371,8 @@ def main() -> int:
         # phase 9 (a): a replayed validation pass of the trained flagship
         "eval_graph_launches": proc_summary["validation"]["launches"]["replayed_call"]["gru_fwd"],
         "gru_bench_launches": export_counts["gru_bench"]["gru_fwd"],
+        # phase 12: the training CLI's first run, each rank (rank 0's validation passes)
+        "cli_launches_per_rank": [c["gru_fwd"] for _, c in sorted(cli_row["runs"][0]["launches"].items())],
         "gru_bench_max_abs_err": max(r["max_abs_err"] for r in export_summary["gru_bench"]),
     }
     # phase 11: the other shipped models, 3 a denoise call and 3 a streaming
@@ -3189,6 +3413,8 @@ def main() -> int:
             # phase 10: the kernel A/B's run, 3 a step of its "always" row and
             # none of its "never" row
             "kernel_ab_launches": export_counts["kernel_ab"][name],
+            # phase 12: the training CLI's first run (5 steps), each rank
+            "cli_launches_per_rank": [c[name] for _, c in sorted(cli_row["runs"][0]["launches"].items())],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             # dWh and dbh are sums over 257k row-steps, entries up to ~1e3:
             # their tolerance is relative (DW_RTOL)
@@ -3236,7 +3462,7 @@ def main() -> int:
                     "quality": {k: v for k, v in quality.items() if k != "runs"},
                     "train_users": {"procedural": proc_summary, "profile": profile_row,
                                     "data_parallel": dp_report, "data_parallel_nccl_one_rank": nccl_report,
-                                    "scaling": ladder},
+                                    "scaling": ladder, "cli": cli_row},
                     "export": export_summary, "shipped": shipped}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -20,11 +20,12 @@ single-process step on the ranks' batches stacked rank-major
 (tests/test_torch_parallel.py against the JAX mesh step on the CPU,
 chip_smoke.py on the card).
 
-`--time_steps N` then times N more steps of train()'s step from there on
-the same batch (host clock, synchronised; the all-reduces pass through the
-host under gloo) and reports their mean as `step_ms` (replayed where the
-step replays), then N of its body uncaptured (`replay=False`) as
-`body_ms`.
+`--time_steps N` then times N more steps from there on the same batch, of
+a train step made as train() makes its own (train() closes its steps at
+its end; the first call, untimed, captures where the step replays) (host
+clock, synchronised; the all-reduces pass through the host under gloo) and
+reports their mean as `step_ms` (replayed where the step replays), then N
+of its body uncaptured (`replay=False`) as `body_ms`.
 
 `--graph_vs_body N` (on a card) trains two fresh states N steps on this
 rank's batch under torch.backends.cudnn.deterministic, one through the
@@ -226,6 +227,8 @@ def main(argv=None):
         state, metrics = loop.train(cfg, dataset, max_iters=1, device=args.device, data_parallel=True,
                                     backend=args.backend)
     step = made[0]
+    if not step.closed:
+        raise AssertionError("train() left its train step open")
     device = next(state.model.parameters()).device
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -242,6 +245,7 @@ def main(argv=None):
         more, report["controls"] = controls(cfg, *batch, device)
         arrays.update(more)
         arrays.update(reductions(device))
+    step = make_train_step(cfg)
     for key, replay in (("step_ms", True), ("body_ms", False)) if args.time_steps else ():
         step(state, *batch, replay=replay)
         parallel.barrier()
@@ -261,7 +265,7 @@ def main(argv=None):
         json.dump(report, f)
     # NCCL's communicator is destroyed once no CUDA graph holds its
     # collectives: with a graph alive, destroying it hung at 4 ranks
-    del step
+    step.close()
     made.clear()
     gc.collect()
     if device.type == "cuda":

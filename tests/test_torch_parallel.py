@@ -166,6 +166,11 @@ def jax_mesh_step(ranks):
     """The JAX step over a 2-device mesh on the global batch, from the
     port's initial weights (those the ranks start from), and jax.grad of the
     same loss on the same mesh, clipped as optax clips it."""
+    return jax_mesh_step_on(tuple(_global_batch(ranks)))
+
+
+def jax_mesh_step_on(global_batch) -> dict:
+    """`jax_mesh_step` on a global batch (clean, noisy) of numpy arrays."""
     from tinyrecurrentunet_tpu.losses import loss_fn
     from tinyrecurrentunet_tpu.parallel.mesh import batch_sharding, replicated_sharding
     from tinyrecurrentunet_tpu.signal import Featurizer
@@ -178,7 +183,7 @@ def jax_mesh_step(ranks):
     jstate = JTrainState.create(apply_fn=jmodel.apply, params=fresh(initial["params"]),
                                 batch_stats=fresh(initial["batch_stats"]), tx=jmake_optimizer(jcfg))
     mesh = make_mesh(WORLD)
-    clean, noisy = shard_batch(mesh, tuple(_global_batch(ranks)))
+    clean, noisy = shard_batch(mesh, global_batch)
     new_state, metrics = jmake_train_step(jcfg, jmodel, mesh)(jstate, clean, noisy)
 
     def loss(params, batch_stats, c, n):
@@ -347,7 +352,7 @@ def test_a_group_of_one_takes_the_data_parallel_path_on_slots(monkeypatch):
 def test_several_processes_need_data_parallel(monkeypatch, tmp_path):
     """A world of several processes trains one model only under
     data_parallel: without it, train() refuses before any work."""
-    monkeypatch.setattr(tloop.parallel, "initialize_distributed", lambda cfg, backend: 2)
+    monkeypatch.setattr(tloop.parallel, "initialize_distributed", lambda cfg, backend, data_parallel=False: 2)
     with pytest.raises(ValueError, match="data_parallel"):
         tloop.train(_config(tconfig, tmp_path), object(), device="cpu")
 

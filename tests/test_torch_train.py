@@ -443,6 +443,9 @@ class _Recorder:
         self.seen.append(np.asarray(clean).copy())
         return state, {"loss": 0.0, "grad_norm": 0.0}
 
+    def close(self):
+        pass
+
 
 def _record_batches(monkeypatch, loop, seen):
     """Replace the loop's step by a recorder of the clean batches."""

@@ -377,6 +377,9 @@ class _Watched:
     def buffers(self, *args):
         return self.step.buffers(*args)
 
+    def close(self):
+        self.step.close()
+
     def __call__(self, state, clean, noisy, *carry):
         slot = self.step.buffers(state, tuple(clean.shape), clean.dtype)
         self.calls.append({"static": clean is slot.clean and noisy is slot.noisy,
@@ -502,6 +505,11 @@ class _WatchedEval:
     def buffers(self, *args):
         return self.evaluate.buffers(*args)
 
+    def close(self):
+        """The eval step's slots as train() left them, then the step closed."""
+        self.slots = dict(self.evaluate._slots)
+        self.evaluate.close()
+
     def __call__(self, state, clean, noisy):
         slot = self.evaluate.buffers(state, tuple(clean.shape), clean.dtype)
         self.calls.append(clean is slot.clean and noisy is slot.noisy)
@@ -521,8 +529,9 @@ def test_the_loop_validates_through_the_eval_slot(tmp_path, monkeypatch):
     state, metrics = tloop.train(cfg, TSynthetic(4, CLIP_SEC, SR), max_iters=2, log_dir=str(tmp_path / "logs"),
                                  valid_dataset=valid, device="cpu")
     (evaluate,) = watched
-    assert evaluate.calls == [True, True] and len(evaluate.evaluate._slots) == 1
-    slot = next(iter(evaluate.evaluate._slots.values()))
+    assert evaluate.calls == [True, True] and len(evaluate.slots) == 1
+    assert evaluate.evaluate.closed and not evaluate.evaluate._slots  # train() closed it at its end
+    slot = next(iter(evaluate.slots.values()))
     assert slot.clean.shape == (2, 4000)  # batch_size_per_device items of the 3
     assert metrics["valid_loss"] == float(_eager_eval(cfg, state, slot.clean, slot.noisy)["loss"])
 

@@ -10,8 +10,10 @@ from tinyrecurrentunet_torch.parallel.mesh import (  # noqa: F401
     default_backend,
     initialize_distributed,
     is_distributed,
+    launch,
     loader_shard,
     local_device,
+    local_rank_count,
     rank,
     sum_gradients_,
     world_size,

@@ -42,11 +42,37 @@ A loader shard is `num_shards=world_size(), shard_index=rank()`: rank r
 reads the items perm[r::W] of the shared per-epoch permutation, and the
 global batch is the ranks' batches stacked rank-major, the order of JAX's
 `make_array_from_process_local_data`.
+
+`launch` is the counterpart of the JAX package's `make_mesh()` over every
+local device (`--data_parallel`): with no launcher around it (no WORLD_SIZE
+in the environment) it runs a function as one rank per local card, in
+processes it starts with the `spawn` method, each given RANK, LOCAL_RANK,
+WORLD_SIZE, LOCAL_WORLD_SIZE and the rendezvous, a TCP store the launching
+process holds (as torchrun's agent holds its own). One rank in all (one
+card, the CPU) runs in the launching process itself, where
+`initialize_distributed` makes a group of one under `data_parallel`. Under
+`cfg.dist` with several processes, one a host, each host starts as many
+ranks as it has cards, every host the same count (checked through the
+store at `coordinator_address`, which process 0 holds): world size
+num_processes x local ranks, rank process_id x local ranks + local rank.
+Under torchrun it runs the function as it is. A rank that fails ends the
+others, on every host, and the launch raises: nothing falls back to fewer
+cards. (torch's elastic agent, `elastic_launch`, would end only its own
+host's ranks: with a static rendezvous an agent never learns that another
+host's rank failed, and its ranks would wait in the step's collectives.)
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import datetime
+import multiprocessing
+import multiprocessing.connection
 import os
+import signal
+import sys
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -73,26 +99,178 @@ def local_device(device: str | torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
-def initialize_distributed(cfg: DistConfig, backend: str) -> int:
+def initialize_distributed(cfg: DistConfig, backend: str, data_parallel: bool = False) -> int:
     """Join the process group once; returns the world size.
 
-    From torchrun's environment when WORLD_SIZE > 1 (RANK, LOCAL_RANK,
-    MASTER_ADDR, MASTER_PORT), else from `cfg` when it asks for several
+    From a launcher's environment (torchrun's or `launch`'s: WORLD_SIZE,
+    RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) at several ranks, or at one
+    under `data_parallel`; else from `cfg` when it asks for several
     processes, one per host (`coordinator_address` host:port,
     `num_processes`, `process_id`), as `jax.distributed.initialize` is
-    called; else nothing: one process. `backend` ("nccl" or "gloo") is used
-    as given: NCCL refuses two ranks on one card, where gloo works (it
-    all-reduces CUDA tensors through the host)."""
+    called; else, under `data_parallel`, a group of one rank in this process
+    (the JAX package's mesh of one device); else nothing: one process.
+    `backend` ("nccl" or "gloo") is used as given: NCCL refuses two ranks on
+    one card, where gloo works (it all-reduces CUDA tensors through the
+    host)."""
     if dist.is_initialized():
         return dist.get_world_size()
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be nccl or gloo, got {backend!r}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    ranks = int(os.environ.get("WORLD_SIZE", "0"))
+    if ranks > 1 or (ranks == 1 and data_parallel):
         dist.init_process_group(backend, init_method="env://")
     elif cfg.num_processes > 1:
         dist.init_process_group(backend, init_method=f"tcp://{cfg.coordinator_address}",
                                 world_size=cfg.num_processes, rank=cfg.process_id)
+    elif data_parallel:
+        store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True, wait_for_workers=False)
+        dist.init_process_group(backend, store=store, world_size=1, rank=0)
     return world_size()
+
+
+def launched() -> bool:
+    """Whether a launcher started this process as a rank (WORLD_SIZE in its
+    environment)."""
+    return "WORLD_SIZE" in os.environ
+
+
+def local_rank_count(device: str | torch.device, requested: int | None = None) -> int:
+    """The ranks `launch` starts on this host: `requested`, else one per
+    visible card for a bare `cuda`, else one (the CPU, or a card named by
+    its index)."""
+    device = torch.device(device)
+    every_card = device.type == "cuda" and device.index is None
+    # the count of cards only: no CUDA context is made in the launching process
+    cards = torch.cuda.device_count() if every_card else None
+    if requested is not None:
+        if requested < 1:
+            raise ValueError(f"{requested} local ranks: at least one")
+        if every_card and requested > cards:
+            raise ValueError(f"{requested} local ranks on {cards} visible card(s): NCCL takes one rank a card")
+        return requested
+    if not every_card:
+        return 1
+    if cards < 1:
+        raise RuntimeError("data parallelism on cuda found no card")
+    return cards
+
+
+STORE_TIMEOUT = datetime.timedelta(seconds=300)  # a rendezvous, or the wait for every host's end
+_KEYS = "trunet_launch"
+
+
+def _die_with_parent(parent: int):
+    """Have Linux end this process when the launching process dies
+    (PR_SET_PDEATHSIG), killed or not: no rank outlives its launcher."""
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    except (OSError, AttributeError):
+        pass
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def _rank_main(fn, args: tuple, parent: int, env: dict):
+    """A spawned rank: fn(*args) with the rank's variables `env` in its
+    environment; an exception is printed and ends the process at once with
+    exit code 1 (no teardown that could wait on the other ranks)."""
+    _die_with_parent(parent)
+    os.environ.update(env)
+    try:
+        fn(*args)
+    except Exception:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _end(procs: list):
+    """Every process of `procs` ended: SIGTERM, then SIGKILL after 10 s."""
+    for p in procs:
+        if p.exitcode is None:
+            p.terminate()
+    for p in procs:
+        p.join(10)
+        if p.exitcode is None:
+            p.kill()
+            p.join()
+
+
+def _run_ranks(fn, args: tuple, envs: list, store, host: int, hosts: int):
+    """Spawn a rank per environment of `envs`, wait for all; the first to
+    fail (or word through the store that a rank of another host failed)
+    ends the rest, and raises."""
+    ctx = multiprocessing.get_context("spawn")
+    procs, failure = [], None
+    try:
+        for env in envs:
+            proc = ctx.Process(target=_rank_main, args=(fn, args, os.getpid(), env), name=f"rank {env['RANK']}")
+            proc.start()
+            procs.append(proc)
+        while failure is None:
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            running = [p for p in procs if p.exitcode is None]
+            if failed:
+                failure = f"{failed[0].name} exited with {failed[0].exitcode}"
+            elif not running:
+                break
+            elif hosts > 1:
+                try:
+                    if store.check([f"{_KEYS}/failed"]):
+                        failure = f"a rank of another host failed ({store.get(f'{_KEYS}/failed').decode()})"
+                except RuntimeError as e:  # the coordinator's store is gone (DistStoreError)
+                    failure = f"the coordinator's store is unreachable ({e})"
+            if failure is None:
+                multiprocessing.connection.wait([p.sentinel for p in running], timeout=0.5)
+    finally:
+        _end(procs)
+    if failure is not None:
+        if hosts > 1:
+            with contextlib.suppress(RuntimeError):  # the store may be gone with its host
+                store.set(f"{_KEYS}/failed", f"host {host}: {failure}")
+        raise RuntimeError(f"data parallelism: {failure}; every other rank of this host was ended")
+    if hosts > 1:
+        # process 0 holds the store: it stays until every host's ranks have ended
+        store.set(f"{_KEYS}/done/{host}", "1")
+        if host == 0:
+            store.wait([f"{_KEYS}/done/{h}" for h in range(hosts)], STORE_TIMEOUT)
+
+
+def launch(fn, args: tuple, cfg: DistConfig, device: str | torch.device, local_ranks: int | None = None):
+    """Run fn(*args) as every rank of this host (module docstring): under a
+    launcher as it is; else one rank per local card (`local_rank_count`) in
+    spawned processes, or, one rank in all, in this process (where
+    `initialize_distributed` makes the group of one). Returns fn's result
+    where this process ran it, else None; raises if a rank failed."""
+    if launched():
+        return fn(*args)
+    local = local_rank_count(device, local_ranks)
+    hosts = max(cfg.num_processes, 1)
+    if hosts * local == 1:
+        return fn(*args)
+    host = cfg.process_id if hosts > 1 else 0
+    if hosts > 1:
+        addr, port = cfg.coordinator_address.rsplit(":", 1)
+        store = dist.TCPStore(addr, int(port), is_master=host == 0, wait_for_workers=False, timeout=STORE_TIMEOUT)
+        store.set(f"{_KEYS}/local_ranks/{host}", str(local))
+        counts = [int(store.get(f"{_KEYS}/local_ranks/{h}")) for h in range(hosts)]
+        store.set(f"{_KEYS}/counted/{host}", "1")
+        if host == 0:  # its store stays until every host has read the counts
+            store.wait([f"{_KEYS}/counted/{h}" for h in range(hosts)], STORE_TIMEOUT)
+        if len(set(counts)) > 1:
+            raise RuntimeError(f"every host must start as many ranks; by process_id: {counts}")
+    else:
+        addr = "127.0.0.1"
+        store = dist.TCPStore(addr, 0, is_master=True, wait_for_workers=False, timeout=STORE_TIMEOUT)
+        port = store.port
+    world = hosts * local
+    envs = [{"RANK": str(host * local + r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
+             "LOCAL_WORLD_SIZE": str(local), "MASTER_ADDR": addr, "MASTER_PORT": str(port),
+             # the ranks join the store this process holds, as torchrun's workers join its agent's
+             "TORCHELASTIC_USE_AGENT_STORE": "True"} for r in range(local)]
+    _run_ranks(fn, args, envs, store, host, hosts)
+    return None
 
 
 def is_distributed() -> bool:

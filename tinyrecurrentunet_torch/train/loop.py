@@ -16,16 +16,31 @@ every `iters_per_ckpt` and at the end.
   permutation default_rng((seed, epoch)), as the JAX loop does: both see the
   same batches in the same order. Other datasets, and every dataset under
   data parallelism (a group of one rank included), go through `DataLoader`.
-- Data parallelism (`data_parallel`, `--data_parallel`): one process per
-  card, started by torchrun (`python -m torch.distributed.run`) or, one per
-  host, from `cfg.dist`. Rank r reads the shard `num_shards=W,
-  shard_index=r` at `batch_size_per_device` items, and the step is the
-  global batch's (`train/step.py`, `parallel/mesh.py`). Rank 0 alone
-  prints, logs, evaluates the whole validation batch and writes checkpoints.
+- Data parallelism (`data_parallel`): one process per card, in a process
+  group (`parallel/mesh.py`). `--data_parallel` trains over every local card,
+  as the JAX package's flag trains over a mesh of every local device: with
+  no launcher around it, the CLI starts one rank per card itself
+  (`parallel.launch`; the CPU, or one card, is a group of one rank in the
+  CLI's own process); under torchrun (`python -m torch.distributed.run`)
+  each process is the rank torchrun made; under `cfg.dist` with several
+  processes, one a host, each host starts a rank per card. Rank r reads the
+  shard `num_shards=W, shard_index=r` at `batch_size_per_device` items, so
+  the global batch is W x `batch_size_per_device`, and the step is the
+  global batch's (`train/step.py`). Rank 0 alone prints, logs, evaluates the
+  whole validation batch and writes checkpoints.
+- Every rank ends: after the final checkpoint, or on an exception, train()
+  waits for the card, closes the train and eval steps (their CUDA graphs
+  hold the collectives; destroying NCCL's group with one alive hung at 4
+  ranks), collects them, then destroys the process group if it made it
+  (after a barrier, which a failed run skips: a peer may sit in a
+  collective it never leaves). A group the caller made is left alone.
 - TBPTT (`tbptt_segment_sec` > 0): each batch is cut into segments, one
   update each, with the TGRU carry passed across them.
 - `profile_dir`: a torch.profiler trace of steps 10-12 (`utils.profiling.trace`;
   on a card the replays of the step's graph, each kernel named).
+- The CLI's every rank prints `rank r ended` when train() has returned, on a
+  card with the GRU kernels' launch counts of its process
+  (`ops.cuda_gru.launch_counts`): what the run launched.
 
 Runs on `cuda` unless asked for `cpu`. On the card every GRU recurrence of
 a step goes through the CUDA kernels (3 forward and 3 backward launches),
@@ -44,7 +59,7 @@ checkpoints stay float32.
 Usage:
     python -m tinyrecurrentunet_torch.train.loop -c config/proc16k.json \
         [--procedural [--procedural_items N] | --synthetic] [--max_iters N] \
-        [--profile DIR] [--device cpu]
+        [--profile DIR] [--device cpu] [--data_parallel]
     python -m torch.distributed.run --nproc_per_node 4 -m tinyrecurrentunet_torch.train.loop \
         -c config/proc16k.json --procedural --data_parallel
 """
@@ -53,6 +68,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import json
+import os
 import time
 
 import numpy as np
@@ -62,6 +80,7 @@ from tinyrecurrentunet_torch import parallel
 from tinyrecurrentunet_torch.config import Config, load_config
 from tinyrecurrentunet_torch.data import CleanNoisyPairDataset, DataLoader, ProceduralSpeechDataset, SyntheticPairDataset
 from tinyrecurrentunet_torch.infer.denoise import resolve_device
+from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
 from tinyrecurrentunet_torch.train.state import create_train_state
 from tinyrecurrentunet_torch.train.step import current_learning_rate, make_eval_step, make_train_step
@@ -119,18 +138,59 @@ def train(
     dataset: an object with __len__ and get(i, rng) -> (clean, noisy, id);
       default CleanNoisyPairDataset(cfg.trainset, subset="training").
     max_iters: stop early (default cfg.train.optimization.n_iters).
-    data_parallel: train over the ranks of the process group that torchrun's
-      environment or cfg.dist asks for; several ranks without it raise.
+    data_parallel: train over the ranks of the process group a launcher's
+      environment (torchrun's, `parallel.launch`'s) or cfg.dist asks for, or
+      the caller made, else over a group of one rank in this process;
+      several ranks without it raise, and a launcher's group of one without
+      it is not joined. A group train() makes, it destroys at its end.
     backend: the process group's, default nccl on a card, gloo on the CPU.
-    device: `cuda` is cuda:LOCAL_RANK under torchrun; an explicit index is
+    device: `cuda` is cuda:LOCAL_RANK under a launcher; an explicit index is
       honoured (two ranks on one card need backend gloo).
     """
     device = resolve_device(parallel.local_device(device))
     if device.index is not None:
         torch.cuda.set_device(device)
-    world = parallel.initialize_distributed(cfg.dist, backend or parallel.default_backend(device))
-    if world > 1 and not data_parallel:
-        raise ValueError(f"{world} processes train one model only with data_parallel (--data_parallel)")
+    backend = backend or parallel.default_backend(device)
+    made_group = not parallel.is_distributed()
+    world = parallel.initialize_distributed(cfg.dist, backend, data_parallel)
+    made_group = made_group and parallel.is_distributed()
+    steps = []  # the train and eval steps made, closed at the end
+    failed = True
+    try:
+        if world > 1 and not data_parallel:
+            raise ValueError(f"{world} processes train one model only with data_parallel (--data_parallel)")
+        result = _train(cfg, dataset, max_iters, log_dir, valid_dataset, device, backend, world, profile_dir, steps)
+        failed = False
+        return result
+    finally:
+        _end_run(device, steps, made_group, failed)
+
+
+def _end_run(device: torch.device, steps: list, made_group: bool, failed: bool):
+    """train()'s end on every rank (module docstring): the card's work
+    finished, the steps' graphs freed and collected, then a group train()
+    made destroyed, after a barrier unless the run failed. After a failure
+    only a gloo group is destroyed (NCCL's would wait on a peer's unfinished
+    collective); an NCCL group goes with the process."""
+    if device.type == "cuda":
+        try:
+            torch.cuda.synchronize(device)
+        except RuntimeError:
+            if not failed:
+                raise
+    for step in steps:
+        step.close()
+    steps.clear()
+    gc.collect()
+    if made_group and parallel.is_distributed():
+        if not failed:
+            parallel.barrier()
+        if not failed or torch.distributed.get_backend() == "gloo":
+            torch.distributed.destroy_process_group()
+
+
+def _train(cfg: Config, dataset, max_iters, log_dir, valid_dataset, device, backend, world, profile_dir, steps):
+    """train()'s run on this rank; the steps it makes go into `steps`."""
     lead = parallel.rank() == 0
     opt = cfg.train.optimization
     log = cfg.train.log
@@ -156,11 +216,16 @@ def train(
         hop = cfg.featurizer.hop_length
         seg_len = max(int(opt.tbptt_segment_sec * cfg.trainset.sample_rate) // hop, 1) * hop
     step_fn = make_train_step(cfg, with_carry=seg_len > 0)
+    steps.append(step_fn)
+    if parallel.is_distributed() and lead:
+        print(f"data parallel: {world} ranks over {backend}, {batch_size} clips a rank, "
+              f"global batch {batch_size * world}", flush=True)
 
     # rank 0 evaluates the validation batch of the global batch's size
     eval_fn = valid_batch = None
     if valid_dataset is not None and lead:
         eval_fn = make_eval_step(cfg)
+        steps.append(eval_fn)
         valid_batch = validation_batch(eval_fn, state, valid_dataset, batch_size * world, world)
 
     if getattr(dataset, "device_cacheable", False) and not parallel.is_distributed():
@@ -245,20 +310,25 @@ def train(
             if n_iter > 0 and n_iter % log.iters_per_ckpt == 0:
                 ckpt.save(n_iter, state, int(time.time() - time0))
                 if lead:
-                    print(f"model at iteration {n_iter} is saved")
+                    print(f"model at iteration {n_iter} is saved", flush=True)
             n_iter += 1
         epoch += 1
     profiling.close()
 
     if metrics:
         ckpt.save(min(n_iter - 1, n_iters), state, int(time.time() - time0))
+        if lead:
+            print(f"model at iteration {min(n_iter - 1, n_iters)} is saved", flush=True)
     if writer is not None:
         writer.close()
     metrics = {k: float(v) for k, v in metrics.items()}
     return state, metrics
 
 
-def main(argv=None):
+def main(argv=None, local_ranks: int | None = None):
+    """The CLI. `local_ranks`: the ranks `--data_parallel` starts on this
+    host with no launcher (default `parallel.local_rank_count`'s: one per
+    visible card, one on the CPU); N gloo ranks on the CPU are the tests'."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", required=True, help="JSON config path")
     parser.add_argument("--max_iters", type=int, default=None)
@@ -275,17 +345,24 @@ def main(argv=None):
                         help="comma-separated degradation kinds overriding the training schedule "
                         "(e.g. 'reverb' for the dereverb-only diagnostic)")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="train over the processes torchrun (or cfg.dist) starts, one per card")
+                        help="train over every local card, one rank each, at a global batch of ranks x "
+                        "batch_size_per_device: ranks started here, or by torchrun, or on each host of cfg.dist")
     parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                         help="process group backend (default nccl on a card, gloo on the CPU; "
                         "two ranks on one card need gloo)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="capture a torch.profiler trace of train steps 10-12 into DIR")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:<index> or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK under a launcher), cuda:<index> or cpu")
     args = parser.parse_args(argv)
-
     cfg = load_config(args.config)
+    if args.data_parallel:
+        return parallel.launch(_train_from_args, (cfg, args), cfg.dist, args.device, local_ranks)
+    return _train_from_args(cfg, args)
+
+
+def _train_from_args(cfg: Config, args):
+    """train() with the CLI's datasets and options: one rank's run."""
     dataset = valid_dataset = None
     if args.procedural:
         kinds = tuple(args.kinds.split(",")) if args.kinds else None
@@ -314,9 +391,13 @@ def main(argv=None):
             sample_rate=cfg.trainset.sample_rate,
             seed=999,
         )
-    return train(cfg, dataset=dataset, max_iters=args.max_iters, valid_dataset=valid_dataset,
-                 device=args.device, data_parallel=args.data_parallel, backend=args.backend,
-                 profile_dir=args.profile)
+    result = train(cfg, dataset=dataset, max_iters=args.max_iters, valid_dataset=valid_dataset,
+                   device=args.device, data_parallel=args.data_parallel, backend=args.backend,
+                   profile_dir=args.profile)
+    launches = f": GRU kernel launches {json.dumps(cuda_gru.launch_counts())}" \
+        if torch.device(args.device).type == "cuda" else ""
+    print(f"rank {os.environ.get('RANK', '0')} ended{launches}", flush=True)
+    return result
 
 
 if __name__ == "__main__":

@@ -52,6 +52,10 @@ counted on the host. The metrics are returned as copies of the static ones.
   the CPU every call runs the body on the slot. A capture or a replay that
   fails raises: nothing falls back to the body. `step.replayed` says which
   of the two the last call ran.
+- `step.close()` drops the slots, their graphs, static buffers and the pool
+  handle, so that no graph holding collectives outlives the process group
+  (`train.loop.train` closes its steps before it destroys the group); a
+  closed step raises when it is called or asked for a slot.
 - Under data parallelism (an initialized process group, a group of one rank
   included, `parallel/mesh.py`) the step uses its slots alike, each rank
   copying its shard of the global batch into the slot's static inputs, and
@@ -79,6 +83,7 @@ the parameters and the running statistics where they lie, so a replay after
 train steps sees their latest values; a slot records their addresses and is
 built anew where one has moved. It returns copies of its static metrics;
 `replay=False` runs the body on the slot; on the CPU every call does.
+`close()` drops its slots as the train step's does.
 """
 
 from __future__ import annotations
@@ -179,6 +184,17 @@ def _snapshot(state: TrainState, slot: _Slot):
     return restore
 
 
+def _check_open(step):
+    if step.closed:
+        raise RuntimeError(f"{type(step).__name__} was closed: its graphs are freed")
+
+
+def _close(step):
+    step._slots.clear()
+    step._pool = None
+    step.closed = True
+
+
 def _copy_in(pairs):
     """Each given tensor into its static buffer, unless it is that buffer."""
     for buf, given in pairs:
@@ -200,6 +216,7 @@ class TrainStep:
         self._pool = None  # the graph memory pool of all the slots, made at the first capture
         self.captures = 0
         self.replayed = None  # whether the last call replayed a graph (else it ran the body)
+        self.closed = False
 
     def __call__(self, state: TrainState, clean, noisy, tgru_h0=None, replay: bool = True):
         if self.with_carry != (tgru_h0 is not None):
@@ -229,6 +246,7 @@ class TrainStep:
         `clean`, `noisy` and (with the carry) `carry` buffers, on the model's
         device, made at its first use; built anew where a tensor it was
         built on has moved."""
+        _check_open(self)
         model = state.model
         key = (id(model), id(state.optimizer), tuple(batch_shape), dtype)
         slot = self._slots.get(key)
@@ -243,6 +261,11 @@ class TrainStep:
                          torch.zeros(batch_shape, dtype=dtype, device=device), carry)
             self._slots[key] = slot
         return slot
+
+    def close(self):
+        """Drop every slot: its graph, static buffers and metrics, and the
+        pool handle. A later call raises."""
+        _close(self)
 
     def _run(self, state: TrainState, clean, noisy, tgru_h0):
         """The step's arithmetic on the given tensors: (metrics, tgru_h)."""
@@ -318,6 +341,7 @@ class EvalStep:
         self._slots: dict[tuple, _EvalSlot] = {}
         self._pool = None  # the graph memory pool of all the slots, made at the first capture
         self.captures = 0
+        self.closed = False
 
     def __call__(self, state: TrainState, clean, noisy, replay: bool = True) -> dict:
         slot = self.buffers(state, tuple(clean.shape), clean.dtype)
@@ -340,6 +364,7 @@ class EvalStep:
         """The slot of `state`'s model and (B, L) batches of `dtype`: its
         static `clean` and `noisy` on the model's device, made at its first
         use; built anew where a parameter or buffer has moved."""
+        _check_open(self)
         model = state.model
         key = (id(model), tuple(batch_shape), dtype)
         slot = self._slots.get(key)
@@ -351,6 +376,10 @@ class EvalStep:
                              torch.zeros(batch_shape, dtype=dtype, device=device))
             self._slots[key] = slot
         return slot
+
+    def close(self):
+        """Drop every slot and the pool handle, as TrainStep.close."""
+        _close(self)
 
     @torch.no_grad()
     def _body(self, slot: _EvalSlot) -> dict:
