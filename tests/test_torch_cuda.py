@@ -896,6 +896,106 @@ def test_denoise_captures_once_per_bucket_then_replays(card):
         assert float(np.abs(out - den._denoise(clips[i % 2], replay=False)).max()) <= 1e-6
 
 
+def test_recorder_times_each_denoise_and_stream_call_on_the_card(card):
+    """Every call has its device interval, mapped onto the host clock after
+    its staging began and before the next call began (the host waited for
+    its output between them; a denoise call waits for it itself), to the
+    clock fit's tens of microseconds; a bucket's first call holds the
+    capture's spans."""
+    from tinyrecurrentunet_torch.infer.denoise import Denoiser
+    from tinyrecurrentunet_torch.infer.multistream import MultiStreamDenoiser
+    from tinyrecurrentunet_torch.utils import profiling
+
+    cfg, sd, audio = _tiny_streaming()
+    profiling.reset()
+    den = Denoiser(cfg, sd, device=card)
+    for i in range(8):
+        den(audio if i % 2 else audio[:3000])
+    streams = MultiStreamDenoiser(cfg, sd, 3, device=card)
+    state = streams.init_state()
+    for _ in range(8):
+        out, state = streams.process_block(state, np.zeros(streams._block_shape, np.float32))
+        out.cpu()
+    slack = 50_000  # ns
+    calls = profiling.calls()
+    assert [c.name for c in calls] == ["trunet.denoise.call"] * 8 + ["trunet.stream.call"] * 8
+    for before, call, after in zip([None, *calls], calls, [*calls[1:], None]):
+        lo, hi = call.device
+        stage = next(s for s in call.spans if s.name.endswith(".stage"))
+        assert stage.start - slack <= lo < hi
+        assert hi <= (call.end if call.name == "trunet.denoise.call" else after.start if after else hi) + slack
+        assert before is None or before.device[1] - slack <= lo
+    for call in calls[:2] + calls[8:9]:
+        graph = [s.name for s in call.spans].index("trunet.graph.capture")
+        assert call.spans[graph].parent == 0  # opened in the call itself
+        assert not any(s.parent == graph for s in call.spans)  # the capture span has no children
+    assert len(profiling.spans("trunet.graph.capture")) == 3
+    assert not any(s.name.endswith(".capture") for c in calls[2:8] + calls[9:] for s in c.spans)
+    profiling.reset()
+
+
+def test_recorder_reads_its_events_only_when_the_ring_is_read(card, monkeypatch):
+    """A ring of 8 calls: 20 stream calls take every pair of the pool again
+    and read no event; the last 8 keep their device intervals, in order,
+    read when the ring is."""
+    from tinyrecurrentunet_torch.infer.multistream import MultiStreamDenoiser
+    from tinyrecurrentunet_torch.utils import profiling
+
+    class Counted:
+        """A pool event that counts the times read from it."""
+
+        def __init__(self, event):
+            self.event = event
+
+        def record(self, stream):
+            self.event.record(stream)
+
+        def elapsed_time(self, other):
+            reads.append(1)
+            return self.event.elapsed_time(other.event)
+
+    reads = []
+    rec = profiling.Recorder(calls=8, spans=128)
+    monkeypatch.setattr(profiling, "RECORDER", rec)
+    cfg, sd, _ = _tiny_streaming()
+    streams = MultiStreamDenoiser(cfg, sd, 3, device=card)
+    state = streams.init_state()
+    for i in range(20):
+        out, state = streams.process_block(state, np.zeros(streams._block_shape, np.float32))
+        out.cpu()
+        if i == 0:  # the pool is made
+            rec._events = tuple([Counted(e) for e in events] for events in rec._events)
+    assert reads == []
+    calls = profiling.calls("trunet.stream.call", last=8)
+    assert len(reads) == 1 + 2 * 7 and [c.id for c in calls] == list(range(12, 20))
+    assert all(lo < hi for lo, hi in (c.device for c in calls))
+    assert all(a.device[1] <= b.device[0] + 50_000 for a, b in zip(calls, calls[1:]))
+
+
+def test_no_timing_event_is_recorded_inside_a_capture(card):
+    """A device interval asked for while the stream captures is not taken:
+    the capture succeeds and the call has none."""
+    from tinyrecurrentunet_torch.utils import profiling
+
+    profiling.reset()
+    x = torch.ones(16, device=card)
+    graph = torch.cuda.CUDAGraph()
+    with profiling.span("call"):
+        with torch.cuda.graph(graph):
+            profiling.device_begin()
+            y = x * 2
+            profiling.device_end()
+    graph.replay()
+    with profiling.span("call"):
+        profiling.device_begin()
+        graph.replay()
+        profiling.device_end()
+    torch.cuda.synchronize()
+    assert float(y.sum()) == 32
+    assert [c.device is None for c in profiling.calls()] == [True, False]
+    profiling.reset()
+
+
 def test_a_failure_inside_denoise_capture_propagates(card, monkeypatch):
     """No eager fallback: a wrapper that fails while the bucket's graph is
     captured (after the warm-up ran it eagerly) fails the call and leaves

@@ -2,8 +2,9 @@
 package's: parameter counts equal at the tiny and the flagship width, the
 weight rescaling within 1e-6 relative (float32 std and division; the JAX
 package's `jnp.std` is the biased estimator, as the port's `correction=0`),
-the printed size in JAX's format; a torch.profiler trace with an annotated
-span, the H100 peaks, `throughput_seconds` and `StepTimer` on the CPU.
+the printed size in JAX's format; a torch.profiler trace with the program's
+span in it (and not in the recorder's ring), the H100 peaks and
+`throughput_seconds` on the CPU.
 """
 
 import json
@@ -89,13 +90,16 @@ def test_print_size_prints_as_jax(capsys):
 
 
 def test_trace_holds_an_annotated_span(tmp_path):
+    """Under the profiler a span is a range of the trace, and stays out of the recorder's ring."""
+    tprofiling.reset()
     with tprofiling.trace(str(tmp_path / "prof")) as log_dir:
-        with tprofiling.annotate("trunet_span"):
+        with tprofiling.span("trunet_span"):
             torch.relu(torch.randn(64, 64) @ torch.randn(64, 64))
     assert log_dir == str(tmp_path / "prof")
     with open(tmp_path / "prof" / "trace_rank0.json") as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]]
     assert "trunet_span" in names and "aten::mm" in names
+    assert tprofiling.calls() == [] and tprofiling.spans("trunet_span") == []
 
 
 def test_peak_flops_knows_the_h100_and_nothing_else():
@@ -113,13 +117,6 @@ def test_throughput_seconds_and_step_timer_on_the_cpu():
     sec = tprofiling.throughput_seconds(lambda: calls.append(1) or x @ x, probes.append, reps_hi=3, reps_lo=1,
                                         repeats=2)
     assert sec > 0 and len(calls) == 2 * (3 + 1) and len(probes) == 2
-    timer = tprofiling.StepTimer()
-    for _ in range(4):
-        with timer.measure():
-            x @ x
-    stats = timer.stats()
-    assert stats["steps"] == 4 and 0 < stats["p50_ms"] <= stats["max_ms"]
-    assert tprofiling.StepTimer().stats() == {}
 
 
 @pytest.mark.parametrize("values", [[3.0, -1.0, 2.5, 7.0], [[0.5, 4.0], [-2.0, 1.0]]])

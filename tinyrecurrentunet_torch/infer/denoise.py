@@ -20,7 +20,11 @@ pool: their inputs and outputs live outside it, the replays run one at a
 time on one stream, and each output is copied out before the next replay.
 A capture or a replay that fails raises; nothing falls back to the eager
 body. On the CPU a call runs the body on the same slots. `Denoiser.run` is
-the body, eager and uncaptured.
+the body, eager and uncaptured. Each call is a `trunet.denoise.call` of the
+port's recorder (`utils/profiling.py`): its `stage`, `replay` and `copy_out`
+spans (a bucket's first call also `trunet.graph.capture`), its `samples` and
+`padded_samples` counts (the clip, the bucket less the clip) and, on a card,
+its device interval from the staging copy to the copy out.
 
 Usage:
     python -m tinyrecurrentunet_torch.infer.denoise -c config/proc16k.json \
@@ -52,7 +56,7 @@ from tinyrecurrentunet_torch.models.phm import denoise_output_to_audio
 from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.train.checkpoint import CheckpointManager
-from tinyrecurrentunet_torch.utils import graphs
+from tinyrecurrentunet_torch.utils import graphs, profiling
 from tinyrecurrentunet_torch.weights import load_pretrained
 
 
@@ -152,17 +156,26 @@ class Denoiser:
         length = len(audio)
         on_card = self.device.type == "cuda"
         # the staging, the capture and the replay on the streams of the denoiser's card
-        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext(), torch.inference_mode():
-            slot = self._slot(self._bucket(length, self.cfg.featurizer.hop_length))
-            self._stage(slot, audio)
+        with profiling.span("trunet.denoise.call"), \
+                torch.cuda.device(self.device) if on_card else contextlib.nullcontext(), torch.inference_mode():
+            bucket = self._bucket(length, self.cfg.featurizer.hop_length)
+            profiling.count("samples", length)
+            profiling.count("padded_samples", bucket - length)
+            slot = self._slot(bucket)
+            with profiling.span("trunet.denoise.stage"):
+                self._stage(slot, audio)
             if replay and on_card:
                 if slot.graph is None:
                     self._capture(slot)
-                slot.graph.replay()
+                with profiling.span("trunet.denoise.replay"):
+                    slot.graph.replay()
                 cuda_gru.add_launches(slot.launches)
             else:
                 self._run_into(slot)
-            return slot.output[:length].to("cpu", copy=True).numpy()
+            with profiling.span("trunet.denoise.copy_out"):
+                out = slot.output[:length].to("cpu", copy=True).numpy()
+                profiling.device_end()
+            return out
 
     def _slot(self, bucket: int) -> _Slot:
         """The bucket's slot, made at its first call."""
@@ -186,6 +199,7 @@ class Denoiser:
         self._staged.synchronize()  # the last call's copy has left its pinned buffer
         slot.pinned[:length].copy_(torch.from_numpy(audio))
         slot.pinned[length:].zero_()
+        profiling.device_begin()
         slot.input.copy_(slot.pinned, non_blocking=True)
         self._staged.record()
 

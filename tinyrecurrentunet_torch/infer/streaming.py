@@ -32,6 +32,10 @@ static input through pinned host memory, replays the graph and copies the
 output out: one graph launch a hop, where the body is ~320 launches. A
 capture or a replay that fails raises; nothing falls back to the eager
 body. `process_spec_frame`, a tool of the alignment tests, stays eager.
+Each call is a `trunet.stream.call` of the port's recorder
+(`utils/profiling.py`): its `adopt`, `stage`, `replay` and `copy_out` spans
+(the first call also `trunet.graph.capture`) and, on a card, its device
+interval from the staging copy to the output's clone.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.signal.features import FeaturizerState
 from tinyrecurrentunet_torch.signal.stft import frame_signal, overlap_add
-from tinyrecurrentunet_torch.utils import graphs
+from tinyrecurrentunet_torch.utils import graphs, profiling
 
 
 class StreamState(NamedTuple):
@@ -121,12 +125,15 @@ class StreamCore:
         from host memory through the pinned buffer, without a sync."""
         shape = self._in.shape
         if isinstance(blocks, torch.Tensor) and blocks.device == self._in.device:
+            if self._pinned is not None:
+                profiling.device_begin()
             self._in.copy_(blocks.reshape(shape))
         elif self._pinned is None:
             self._in.copy_(torch.as_tensor(blocks, dtype=torch.float32).reshape(shape))
         else:
             self._staged.synchronize()  # the last call's copy has left the pinned buffer
             self._pinned.copy_(torch.as_tensor(blocks, dtype=torch.float32).reshape(shape))
+            profiling.device_begin()
             self._in.copy_(self._pinned, non_blocking=True)
             self._staged.record()
 
@@ -165,17 +172,24 @@ class StreamCore:
             raise ValueError(f"blocks of shape {tuple(np.shape(blocks))}, expected {self._block_shape}")
         on_card = self.device.type == "cuda"
         # the staging, the capture and the replay on the streams of the denoiser's card
-        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
-            self._adopt(state)
-            self._stage(blocks)
+        with profiling.span("trunet.stream.call"), \
+                torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+            with profiling.span("trunet.stream.adopt"):
+                self._adopt(state)
+            with profiling.span("trunet.stream.stage"):
+                self._stage(blocks)
             if replay and on_card:
                 if self._graph is None:
                     self._capture()
-                self._graph.replay()
+                with profiling.span("trunet.stream.replay"):
+                    self._graph.replay()
                 cuda_gru.add_launches(self._graph_launches)
             else:
                 self._step_into()
-            return self._out.clone().reshape(self._block_shape), self._state
+            with profiling.span("trunet.stream.copy_out"):
+                out = self._out.clone().reshape(self._block_shape)
+                profiling.device_end()
+            return out, self._state
 
     def _spectra(self, in_buffer: torch.Tensor, blocks: torch.Tensor):
         """Slide the analysis window over new samples (N, k*hop): returns

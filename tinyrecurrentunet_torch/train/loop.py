@@ -37,7 +37,9 @@ every `iters_per_ckpt` and at the end.
 - TBPTT (`tbptt_segment_sec` > 0): each batch is cut into segments, one
   update each, with the TGRU carry passed across them.
 - `profile_dir`: a torch.profiler trace of steps 10-12 (`utils.profiling.trace`;
-  on a card the replays of the step's graph, each kernel named).
+  on a card the replays of the step's graph, each kernel named), with the
+  program's spans as `trunet.*` ranges on the same clock: each step, its
+  copy in, replay and metrics (`train/step.py`).
 - The CLI's every rank prints `rank r ended` when train() has returned, on a
   card with the GRU kernels' launch counts of its process
   (`ops.cuda_gru.launch_counts`): what the run launched.

@@ -25,6 +25,10 @@ batch already in them, as the loop's device corpus gathers it, is not); the
 learning rate is written into the optimizer's rate tensor
 (`train.state.set_learning_rate`); the graph is replayed; `state.step` is
 counted on the host. The metrics are returned as copies of the static ones.
+Each call is a `trunet.train.step` of the port's recorder
+(`utils/profiling.py`), with its `copy_in` (the slot's address check
+included), `replay` and `metrics` spans (a slot's first call on a card also
+`trunet.graph.capture`).
 
 - A slot's first call on a card snapshots the state (the model's parameters
   and buffers, the optimizer's state, "none yet" included, and the carry),
@@ -98,7 +102,7 @@ from tinyrecurrentunet_torch.losses import loss_fn
 from tinyrecurrentunet_torch.ops import cuda_gru
 from tinyrecurrentunet_torch.signal import Featurizer
 from tinyrecurrentunet_torch.train.state import TrainState, make_schedule, set_learning_rate
-from tinyrecurrentunet_torch.utils import graphs
+from tinyrecurrentunet_torch.utils import graphs, profiling
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -221,24 +225,28 @@ class TrainStep:
     def __call__(self, state: TrainState, clean, noisy, tgru_h0=None, replay: bool = True):
         if self.with_carry != (tgru_h0 is not None):
             raise TypeError("a TGRU carry is passed exactly when the step was made with_carry")
-        _ensure_grads(state.model)
-        slot = self.buffers(state, tuple(clean.shape), clean.dtype)
-        _copy_in(((slot.clean, clean), (slot.noisy, noisy), (slot.carry, tgru_h0)))
-        set_learning_rate(state.optimizer, self.schedule(state.step))
-        self.replayed = replay and slot.clean.device.type == "cuda" and parallel.capturable_collectives()
-        if self.replayed:
-            with torch.cuda.device(slot.clean.device):
-                if slot.graph is None:
-                    self._capture(state, slot)
-                state.model.train()
-                slot.graph.replay()
-            cuda_gru.add_launches(slot.launches)
-            metrics = {k: v.clone() for k, v in slot.metrics.items()}
-        else:
-            metrics = self._body(state, slot)
-        if slot.addresses is None:
-            slot.addresses = _addresses(state)
-        state.step += 1
+        with profiling.span("trunet.train.step"):
+            _ensure_grads(state.model)
+            with profiling.span("trunet.train.copy_in"):
+                slot = self.buffers(state, tuple(clean.shape), clean.dtype)
+                _copy_in(((slot.clean, clean), (slot.noisy, noisy), (slot.carry, tgru_h0)))
+            set_learning_rate(state.optimizer, self.schedule(state.step))
+            self.replayed = replay and slot.clean.device.type == "cuda" and parallel.capturable_collectives()
+            if self.replayed:
+                with torch.cuda.device(slot.clean.device):
+                    if slot.graph is None:
+                        self._capture(state, slot)
+                    state.model.train()
+                    with profiling.span("trunet.train.replay"):
+                        slot.graph.replay()
+                cuda_gru.add_launches(slot.launches)
+                with profiling.span("trunet.train.metrics"):
+                    metrics = {k: v.clone() for k, v in slot.metrics.items()}
+            else:
+                metrics = self._body(state, slot)
+            if slot.addresses is None:
+                slot.addresses = _addresses(state)
+            state.step += 1
         return (state, metrics, slot.carry) if self.with_carry else (state, metrics)
 
     def buffers(self, state: TrainState, batch_shape: tuple, dtype=torch.float32) -> _Slot:

@@ -10,7 +10,8 @@ cuFFT's plans, cuDNN's choices, state made lazily such as AdamW's), calls
 captures one call of `body()` into a new `torch.cuda.CUDAGraph`, in the
 memory pool `pool` where one is given, under `cuda_gru.capture_tally`. The
 captured call runs nothing: the graph's replays do. A failure in the
-warm-up or the capture raises, and no graph is returned.
+warm-up or the capture raises, and no graph is returned. The whole is a
+`trunet.graph.capture` span of the port's recorder (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from tinyrecurrentunet_torch.ops import cuda_gru
+from tinyrecurrentunet_torch.utils import profiling
 
 WARMUP = 3  # eager runs of the body before its capture
 
@@ -32,17 +34,18 @@ class Captured(NamedTuple):
 
 def capture(body: Callable[[], Any], restore: Callable[[], None] | None = None, pool=None) -> Captured:
     """Warm `body` up on a side stream, `restore()`, capture one call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP):
-            body()
-    torch.cuda.current_stream().wait_stream(side)
-    if restore is not None:
-        restore()
-    graph = torch.cuda.CUDAGraph()
-    with cuda_gru.capture_tally() as tally, torch.cuda.graph(graph, pool=pool):
-        output = body()
+    with profiling.span("trunet.graph.capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        if restore is not None:
+            restore()
+        graph = torch.cuda.CUDAGraph()
+        with cuda_gru.capture_tally() as tally, torch.cuda.graph(graph, pool=pool):
+            output = body()
     return Captured(graph, tally, output)
 
 

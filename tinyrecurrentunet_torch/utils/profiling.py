@@ -1,13 +1,65 @@
-"""Profiling hooks, counterpart of `tinyrecurrentunet_tpu/utils/profiling.py`.
+"""The port's recorder of its own work, and the profiler hooks beside it;
+counterpart of `tinyrecurrentunet_tpu/utils/profiling.py`.
 
-- `trace(log_dir)`: a torch.profiler trace of the enclosed block (host ops
-  and, on a card, its kernels), written as a Chrome trace
-  `<log_dir>/trace_rank<r>.json` (ui.perfetto.dev, chrome://tracing, or
-  TensorBoard's profiler plugin);
-- `annotate(name)`: a named span on that timeline (`record_function`);
+The recorder (`Recorder`; the process's own is `RECORDER`, which the
+module's functions use):
+
+- `span(name)`: a named region of the program's work, as a `with` block.
+  While a torch.profiler records (`torch._C._autograd._profiler_enabled()`)
+  it is a `record_function` range, in the profiler's trace on the same clock
+  as the kernels (`trace()` below, `train/loop.py --profile`). Otherwise it
+  goes into the recorder's ring: its name, its start and end
+  (`time.perf_counter_ns()`) and its parent. A span opened with no span open
+  is a call; the spans opened inside it are its spans. A span made under a
+  profiler never enters the ring, so the ring holds untraced calls only.
+- `count(name, n)`: adds `n` to the open call's count `name` (nothing
+  where no call of the ring is open).
+- `device_begin()` / `device_end()`: inside a call on a card, a pair of
+  timing CUDA events from a pool made at the first, recorded on the
+  current stream before the call's first device operation and after its
+  last: the call's device interval. Nothing is recorded while the stream
+  is capturing, nor on another card than the pool's. The pool holds a
+  pair for each call the ring holds, so a pair is taken again only once
+  its call has left the ring: the times are read when the ring is read,
+  after a synchronize there, and never while calls run.
+- `calls(name, last)`, `spans(name)`: what the ring holds, read at the
+  end; `Overflow` where the ring no longer holds what was asked for.
+  `idle_by_span(calls)`: the device's idle time over those calls, by span.
+- `enable(on)` (on at import), `reset()`.
+
+The ring is preallocated (`RING_CALLS` calls, `RING_SPANS` spans, the
+oldest overwritten first): a span takes no lock, grows nothing and waits
+for nothing on the card. One thread records at a time (the port's paths
+each run on one); turned off, a span costs a flag test.
+
+One clock. A device interval is read as CUDA events' elapsed times: each
+call's start event against the previous timed call's (a chain, broken by a
+gap of more than `CHAIN_BREAK_NS`, at the ring's reset or where the
+previous pair was taken again, where a new chain starts at 0), its end
+event against its start. The chain puts every event of a chain on the
+card's timer to within float32's rounding of one call's span, however long
+the run. The host stamp of each start event is taken as it is recorded. A
+call that finds the card idle has its start event timed a few microseconds
+after that stamp; one that finds work queued, later. So the lower envelope
+of (device time - host stamp) over a chain's calls is the offset between
+the two clocks, and its slope the card timer's drift against the host's
+(a few ppm on an H100, 400 µs over a 45 s run), which outgrows a single
+anchor. `fit_clock` takes the least value of each of `FIT_BINS` equal
+stretches of host time, fits a line through them, drops stretches above
+it by more than three times the median residual (those in which no call
+found the card idle), and fits again; `calls()` maps each device interval
+onto the host clock with its chain's line. Probes on an idle card, each
+between two host stamps (`scripts/torch_recorder_window.py probe`), check
+the line at both ends of a long run (PERF.md).
+
+The profiler hooks:
+
+- `trace(log_dir)`: a torch.profiler trace of the enclosed block (host ops,
+  the program's spans and, on a card, its kernels), written as a Chrome
+  trace `<log_dir>/trace_rank<r>.json` (ui.perfetto.dev, chrome://tracing,
+  or TensorBoard's profiler plugin);
 - `peak_flops(device, dtype)`: the card's published dense peak;
-- `throughput_seconds`: device seconds a call, by CUDA events;
-- `StepTimer`: host-clock step statistics.
+- `throughput_seconds`: device seconds a call, by CUDA events.
 """
 
 from __future__ import annotations
@@ -15,11 +67,412 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from array import array
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tinyrecurrentunet_torch import parallel
+
+RING_CALLS = 1 << 16  # calls the ring holds, and timing event pairs in the pool (a power of two)
+RING_SPANS = 1 << 19  # spans the ring holds (a power of two)
+CHAIN_BREAK_NS = 10 * 10**9  # a longer gap between two calls' start events starts a new chain
+FIT_BINS = 64
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_now = time.perf_counter_ns
+
+
+class Overflow(RuntimeError):
+    """The ring has overwritten part of what was asked for."""
+
+
+class Span(NamedTuple):
+    name: str
+    start: int  # host ns (time.perf_counter_ns)
+    end: int
+    parent: int  # index of the parent in its call's spans; -1 for the call itself
+
+
+class Call(NamedTuple):
+    id: int  # the call's number since the ring's reset
+    name: str
+    start: int  # host ns
+    end: int
+    counts: dict
+    device: tuple | None  # (start, end) of the device interval on the host clock, ns
+    spans: tuple  # of Span, the call itself first, in the order they opened
+
+
+class Clock(NamedTuple):
+    """device ns - host ns = offset + drift * (host ns - host0), the lower envelope."""
+
+    host0: float
+    offset: float
+    drift: float
+
+    def host(self, device_ns: float) -> float:
+        """The host time (ns) of an instant the card's timer reads `device_ns`."""
+        return self.host0 + (device_ns - self.host0 - self.offset) / (1.0 + self.drift)
+
+
+def fit_clock(host_ns, device_ns, bins: int = FIT_BINS) -> Clock:
+    """The lower envelope of (device - host) against host time, as the
+    module docstring says; with too few stretches, no drift."""
+    h = np.asarray(host_ns, np.float64)
+    y = np.asarray(device_ns, np.float64) - h
+    host0 = float(h.min())
+    x = h - host0
+    width = float(x.max())
+    if width <= 0:
+        return Clock(host0, float(y.min()), 0.0)
+    stretch = np.minimum((x * (bins / width)).astype(np.int64), bins - 1)
+    order = np.lexsort((y, stretch))
+    first = order[np.r_[True, stretch[order][1:] != stretch[order][:-1]]]
+    xs, ys = x[first], y[first]
+    if len(xs) < 2:
+        return Clock(host0, float(ys.min()), 0.0)
+    drift, offset = np.polyfit(xs, ys, 1)
+    resid = ys - (offset + drift * xs)
+    keep = resid <= 3.0 * np.median(np.abs(resid)) + 1.0
+    if keep.sum() >= 2:
+        drift, offset = np.polyfit(xs[keep], ys[keep], 1)
+    return Clock(host0, float(offset), float(drift))
+
+
+class Recorder:
+    """The ring of calls and spans, the calls' counts, the pool of timing
+    events and the device intervals read from it."""
+
+    def __init__(self, calls: int = RING_CALLS, spans: int = RING_SPANS):
+        if calls & (calls - 1) or spans & (spans - 1):
+            raise ValueError("calls and spans are powers of two")
+        self.on = True
+        self._ncap, self._cmask, self._scap, self._smask = calls, calls - 1, spans, spans - 1
+        self._names = [""] * spans
+        self._starts = array("q", bytes(8 * spans))
+        self._ends = array("q", bytes(8 * spans))
+        self._parents = array("q", bytes(8 * spans))
+        self._roots = array("q", bytes(8 * calls))  # a call's own span
+        self._pair_of = array("q", bytes(8 * calls))  # its event pair's number, -1 for none
+        self._marks = array("q", bytes(8 * calls))  # host ns as its start event was recorded
+        self._dev_start = array("q", bytes(8 * calls))  # device ns on its chain, -1 unread
+        self._dev_end = array("q", bytes(8 * calls))
+        self._chain_of = array("q", bytes(8 * calls))
+        self._counts: dict[str, tuple] = {}  # name -> (values, owning call) a call slot
+        self._events = None  # (start events, end events), a pair a call slot, made at the first device interval
+        self._device = None
+        self._stream = self._stream_id = None
+        self._pair_call = array("q", bytes(8 * calls))  # pair k's call, in slot k & (calls - 1)
+        self._pair_ended = array("b", bytes(calls))
+        self._pair_dev = array("q", bytes(8 * calls))  # the pair's start, device ns on its chain
+        self._pair_chain = array("q", bytes(8 * calls))
+        self.reset()
+
+    def enable(self, on: bool):
+        self.on = bool(on)
+
+    def reset(self):
+        """Forgets every call, span, count and device interval."""
+        self._nspans = self._ncalls = self._npairs = self._settled = 0
+        self._top = -1  # the innermost open span, -1 where none is open
+        self._open = -1  # the open call, while a span is open
+        self._counts.clear()
+
+    # the hot path
+
+    def begin(self, name: str) -> int:
+        """Opens a span (a call where none is open); its number. Until it
+        ends, its end reads before its start (an earlier span's or 0)."""
+        seq = self._nspans
+        self._nspans = seq + 1
+        i = seq & self._smask
+        self._names[i] = name
+        top = self._parents[i] = self._top
+        if top < 0:
+            call = self._open = self._ncalls
+            self._ncalls = call + 1
+            c = call & self._cmask
+            self._roots[c] = seq
+            self._pair_of[c] = -1
+        self._top = seq
+        self._starts[i] = _now()
+        return seq
+
+    def end(self, seq: int):
+        """Closes span `seq`, the innermost one open."""
+        i = seq & self._smask
+        self._ends[i] = _now()
+        self._top = self._parents[i]
+
+    def count(self, name: str, n: int):
+        if self._top < 0:
+            return
+        call = self._open
+        slot = self._counts.get(name)
+        if slot is None:
+            slot = self._counts[name] = (array("q", bytes(8 * self._ncap)), array("q", [-1]) * self._ncap)
+        values, owners = slot
+        c = call & self._cmask
+        if owners[c] == call:
+            values[c] += n
+        else:
+            owners[c] = call
+            values[c] = n
+
+    def device_begin(self):
+        if self._top < 0:
+            return
+        call = self._open
+        c = call & self._cmask
+        if self._pair_of[c] >= 0 or torch._C._cuda_isCurrentStreamCapturing():
+            return
+        stream = self._current_stream()
+        if stream is None:
+            return
+        k = self._npairs
+        p = k & self._cmask
+        self._npairs = k + 1
+        self._pair_call[p] = call
+        self._pair_ended[p] = 0
+        self._pair_of[c] = k
+        self._dev_start[c] = self._dev_end[c] = -1
+        self._marks[c] = _now()
+        self._events[0][p].record(stream)
+
+    def device_end(self):
+        if self._top < 0:
+            return
+        k = self._pair_of[self._open & self._cmask]
+        if k < 0 or self._pair_ended[k & self._cmask] or torch._C._cuda_isCurrentStreamCapturing():
+            return
+        stream = self._current_stream()
+        if stream is None:
+            return
+        p = k & self._cmask
+        self._events[1][p].record(stream)
+        self._pair_ended[p] = 1
+
+    def _current_stream(self):
+        """The current stream of the card the pool's events belong to, None
+        on another card. The pool is made at the first call, each event
+        recorded once there: an event's first record makes it on the card,
+        which costs more than recording it again. The stream object is kept
+        while it stays current: `torch.cuda.current_stream()` costs more
+        than recording an event."""
+        device = torch._C._cuda_getDevice()
+        if self._events is None:
+            self._device = device
+            event = torch._C._CudaEventBase  # torch.cuda.Event less its Python layer
+            self._events = tuple([event(enable_timing=True) for _ in range(self._ncap)] for _ in "se")
+            stream = torch.cuda.current_stream()
+            for events in self._events:
+                for event in events:
+                    event.record(stream)
+        elif device != self._device:
+            return None
+        stream_id = torch._C._cuda_getCurrentStream(device)[0]
+        if stream_id != self._stream_id:
+            self._stream, self._stream_id = torch.cuda.current_stream(), stream_id
+        return self._stream
+
+    # reading
+
+    def _flush(self):
+        """Every pair recorded since the last reading and still held, its
+        call ended, settled in order after the card's work: its call gets
+        its device interval (device ns on its chain)."""
+        held = max(0, self._npairs - self._ncap)  # the oldest pair not taken again
+        n = self._npairs
+        if n and self._top >= 0 and self._pair_call[(n - 1) & self._cmask] == self._open:
+            n -= 1  # the open call's: settled once the call has ended
+        if max(self._settled, held) >= n:
+            return
+        with torch.cuda.device(self._device):
+            torch.cuda.synchronize()
+        starts, ends = self._events
+        for k in range(max(self._settled, held), n):
+            p, q = k & self._cmask, (k - 1) & self._cmask
+            gap = round(starts[q].elapsed_time(starts[p]) * 1e6) if k > held else CHAIN_BREAK_NS + 1
+            if gap > CHAIN_BREAK_NS:  # a new chain, named by its first pair
+                dev, chain = 0, k
+            else:
+                dev, chain = self._pair_dev[q] + gap, self._pair_chain[q]
+            self._pair_dev[p], self._pair_chain[p] = dev, chain
+            c = self._pair_call[p] & self._cmask
+            if self._pair_of[c] == k:  # its call is still in the ring
+                self._dev_start[c], self._chain_of[c] = dev, chain
+                if self._pair_ended[p]:
+                    self._dev_end[c] = dev + round(starts[p].elapsed_time(ends[p]) * 1e6)
+        self._settled = n
+
+    def spans(self, name: str) -> list[tuple[int, int]]:
+        """(start, end) of every closed span named `name` since the reset;
+        Overflow where the ring has overwritten spans."""
+        if self._nspans > self._scap:
+            raise Overflow(f"the ring held {self._scap} spans of the {self._nspans} recorded")
+        return [(self._starts[i], self._ends[i]) for i in range(self._nspans)
+                if self._names[i] == name and self._ends[i] >= self._starts[i]]
+
+    def calls(self, name: str | None = None, last: int | None = None) -> list[Call]:
+        """The closed calls named `name` (any name with None), oldest
+        first: the last `last` of them, or all. Overflow where the ring
+        has overwritten one that was asked for."""
+        self._flush()
+        found, clocks = [], {}
+        oldest_span = self._nspans - self._scap
+        call = self._ncalls - 1
+        oldest = max(0, self._ncalls - self._ncap)
+        while call >= oldest and (last is None or len(found) < last):
+            root = self._roots[call & self._cmask]
+            if root < oldest_span:
+                raise Overflow(f"call {call}'s spans were overwritten")
+            i = root & self._smask
+            if (name is None or self._names[i] == name) and self._ends[i] >= self._starts[i]:
+                found.append(self._record(call, root, clocks))
+            call -= 1
+        if oldest > 0 and (last is None or len(found) < last):
+            raise Overflow(f"the ring held {self._ncap} calls of the {self._ncalls} recorded")
+        return found[::-1]
+
+    def _record(self, call: int, root: int, clocks: dict) -> Call:
+        c = call & self._cmask
+        stop = self._roots[(call + 1) & self._cmask] if call + 1 < self._ncalls else self._nspans
+        spans = tuple(Span(self._names[s & self._smask], self._starts[s & self._smask], self._ends[s & self._smask],
+                           self._parents[s & self._smask] - root if s > root else -1) for s in range(root, stop))
+        counts = {name: values[c] for name, (values, owners) in self._counts.items() if owners[c] == call}
+        device = None
+        if self._pair_of[c] >= 0 and self._dev_end[c] >= 0:
+            chain = self._chain_of[c]
+            if chain not in clocks:
+                clocks[chain] = self._clock(chain)
+            clock = clocks[chain]
+            device = (round(clock.host(self._dev_start[c])), round(clock.host(self._dev_end[c])))
+        return Call(call, spans[0].name, spans[0].start, spans[0].end, counts, device, spans)
+
+    def _clock(self, chain: int) -> Clock:
+        held = [c & self._cmask for c in range(max(0, self._ncalls - self._ncap), self._ncalls)]
+        held = [c for c in held if self._pair_of[c] >= 0 and self._dev_start[c] >= 0 and self._chain_of[c] == chain]
+        return fit_clock([self._marks[c] for c in held], [self._dev_start[c] for c in held])
+
+
+def idle_by_span(calls: list[Call], top: int = 10) -> list:
+    """The card's idle time (s) from the first call's start to the last
+    call's end, between the calls' device intervals, by the innermost span
+    open on the host over it ("outside the program's spans" where none):
+    each gap is cut where a span opens or closes, as `trubench/trace.py`'s
+    `Slice.idle_gaps` sums a profiled slice's gaps by the span open where
+    they begin. Most first, at most `top`."""
+    if not calls:
+        return []
+    busy = []
+    for lo, hi in sorted(c.device for c in calls if c.device is not None):
+        if busy and lo <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], hi)
+        else:
+            busy.append([lo, hi])
+    window = (calls[0].start, max([calls[-1].end] + [hi for _, hi in busy[-1:]]))
+    gaps, t = [], window[0]
+    for lo, hi in busy:
+        if lo > t:
+            gaps.append((t, min(lo, window[1])))
+        t = max(t, hi)
+    if t < window[1]:
+        gaps.append((t, window[1]))
+    pieces = [piece for call in calls for piece in _innermost(call.spans)]
+    totals: dict[str, float] = {}
+    j = 0
+    for lo, hi in gaps:
+        covered = 0
+        while j < len(pieces) and pieces[j][1] <= lo:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < hi:
+            s, e, name = pieces[k]
+            part = min(e, hi) - max(s, lo)
+            if part > 0:
+                totals[name] = totals.get(name, 0.0) + part / 1e9
+                covered += part
+            k += 1
+        if hi - lo > covered:
+            key = "outside the program's spans"
+            totals[key] = totals.get(key, 0.0) + (hi - lo - covered) / 1e9
+    return sorted(([n, t] for n, t in totals.items()), key=lambda x: -x[1])[:top]
+
+
+def _innermost(spans: tuple) -> list:
+    """(start, end, name) pieces of a call's host time, each under the
+    innermost of its spans open over it, in order."""
+    edges = sorted({x for s in spans for x in (s.start, s.end)})
+    depth = [0] * len(spans)
+    for i, s in enumerate(spans):
+        depth[i] = depth[s.parent] + 1 if s.parent >= 0 else 0
+    pieces = []
+    for lo, hi in zip(edges, edges[1:]):
+        open_ = [i for i, s in enumerate(spans) if s.start <= lo and hi <= s.end]
+        if open_:
+            pieces.append((lo, hi, spans[max(open_, key=depth.__getitem__)].name))
+    return pieces
+
+
+RECORDER = Recorder()
+
+
+class span:
+    """A named span of the program's work (module docstring): a
+    `record_function` range under a profiler, else the ring's."""
+
+    __slots__ = ("name", "_seq", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        recorder = RECORDER
+        if not recorder.on:
+            self._seq = -1
+        elif _profiler_enabled():
+            self._seq = -2
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._seq = recorder.begin(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._seq >= 0:
+            RECORDER.end(self._seq)
+        elif self._seq == -2:
+            self._range.__exit__(*exc)
+
+
+def count(name: str, n: int):
+    RECORDER.count(name, n)
+
+
+def device_begin():
+    RECORDER.device_begin()
+
+
+def device_end():
+    RECORDER.device_end()
+
+
+def enable(on: bool):
+    RECORDER.enable(on)
+
+
+def reset():
+    RECORDER.reset()
+
+
+def calls(name: str | None = None, last: int | None = None) -> list[Call]:
+    return RECORDER.calls(name, last)
+
+
+def spans(name: str) -> list[tuple[int, int]]:
+    return RECORDER.spans(name)
 
 
 @contextlib.contextmanager
@@ -35,13 +488,6 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_rank{parallel.rank()}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region inside a trace."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 # Published dense peaks of an NVIDIA H100 SXM at its 700 W limit (NVIDIA's
@@ -95,29 +541,3 @@ def throughput_seconds(run_once, sync_probe, reps_hi: int, reps_lo: int, repeats
         return (time.perf_counter() - t0) / reps_hi
 
     return max(float(np.median([reading() for _ in range(repeats)])), 1e-9)
-
-
-class StepTimer:
-    """Host-clock step statistics (p50/p95/max) for loops."""
-
-    def __init__(self):
-        self.samples: list[float] = []
-
-    @contextlib.contextmanager
-    def measure(self):
-        start = time.perf_counter()
-        yield
-        self.samples.append(time.perf_counter() - start)
-
-    def stats(self) -> dict:
-        if not self.samples:
-            return {}
-        s = sorted(self.samples)
-        n = len(s)
-        return {
-            "steps": n,
-            "p50_ms": s[n // 2] * 1000,
-            "p95_ms": s[min(n - 1, int(n * 0.95))] * 1000,
-            "max_ms": s[-1] * 1000,
-            "mean_ms": sum(s) / n * 1000,
-        }
