@@ -99,7 +99,7 @@ def controls(cfg, clean, noisy, device) -> tuple[dict, dict]:
             t.copy_(flat[offset : offset + t.numel()].view_as(t))
             offset += t.numel()
 
-    local = types.SimpleNamespace(is_distributed=lambda: False, all_reduce_sum=parallel.all_reduce_sum)
+    local = types.SimpleNamespace(all_reduce_sum=lambda t: t)  # BatchNorm's sums stay on the rank
     arrays, metrics = {}, {}
     for name, patch in (("local_bn", mock.patch.object(blocks, "parallel", local)),
                         ("grads_x_w", mock.patch.object(parallel, "sum_gradients_", summed_only))):

@@ -349,6 +349,33 @@ def test_a_group_of_one_takes_the_data_parallel_path_on_slots(monkeypatch):
     np.testing.assert_allclose(got["stats"], want["stats"], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bf16"])
+def test_train_mode_batchnorm_takes_one_path_with_or_without_a_group(dtype):
+    """A train-mode BatchNorm alone and in a gloo group of one rank runs the
+    same arithmetic: output, input gradient and both running statistics are
+    bit-equal."""
+    import torch.distributed as dist
+
+    x, upstream, _, _ = _reduce_inputs()
+
+    def one_call():
+        bn = BatchNorm(5, dtype=dtype).train()
+        xt = torch.from_numpy(x).to(dtype or torch.float32).requires_grad_()
+        y = bn(xt)
+        (y.float() * torch.from_numpy(upstream)).sum().backward()
+        return y.detach(), xt.grad, bn.running_mean.clone(), bn.running_var.clone()
+
+    want = one_call()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        assert parallel.is_distributed()
+        got = one_call()
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_several_processes_need_data_parallel(monkeypatch, tmp_path):
     """A world of several processes trains one model only under
     data_parallel: without it, train() refuses before any work."""

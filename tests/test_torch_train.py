@@ -157,6 +157,33 @@ def test_train_mode_batchnorm_matches_flax():
     torch.testing.assert_close(tbn.running_mean, before, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bf16"])
+def test_train_mode_batchnorm_divides_no_full_size_tensor(dtype):
+    """One forward and backward of a train-mode BatchNorm alone runs no
+    division whose output has as many values as the input: the statistics
+    divide the (2C+1,) vector of sums once, and their gradient reaches x as
+    an expanded view (a mean's backward would divide twice, full-size)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    x = torch.randn(6, 70, 5, generator=torch.Generator().manual_seed(0)) * 2 + 1
+    x = x.to(dtype or torch.float32).requires_grad_()
+    full_size_divisions = []
+
+    class CountDivisions(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.startswith("div") and out.numel() == x.numel():
+                full_size_divisions.append(str(func))
+            return out
+
+    bn = TBatchNorm(5, dtype=dtype).train()
+    with CountDivisions():
+        y = bn(x)
+        (y.float() * torch.linspace(-1, 1, x.numel()).reshape(x.shape)).sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
+    assert full_size_divisions == []
+
+
 # -------------------------------------------------------------- initial weights
 
 

@@ -11,12 +11,14 @@ BatchNorm follows flax (eps 1e-5, momentum 0.99), in flax's order
 (x - mean) * (rsqrt(var + eps) * scale) + bias. In eval mode it reads the
 running statistics. In training mode (`Module.train()`) it normalises by the
 batch mean and the biased batch variance E[x^2] - E[x]^2, clipped at 0, and
-updates the running statistics as ra = 0.99 ra + 0.01 batch. Under data
-parallelism (an initialized process group, of any size, `parallel/mesh.py`)
-the batch is the global one: the ranks all-reduce Σx, Σx² and the count, as
-flax's BatchNorm reduces over a batch sharded across a mesh. The count is
-filled on the device, so that no host-to-device copy stands in a captured
-step.
+updates the running statistics as ra = 0.99 ra + 0.01 batch. It takes Σx,
+Σx² and the count, and divides once on that (2C+1,) vector, so that the
+gradient of the statistics reaches x as an expanded view and no full-size
+tensor is divided. Under data parallelism (an initialized process group, of
+any size, `parallel/mesh.py`) the ranks all-reduce the vector first, so the
+batch is the global one, as flax's BatchNorm reduces over a batch sharded
+across a mesh; alone, the all-reduce is the identity. The count is filled on
+the device, so that no host-to-device copy stands in a captured step.
 
 `dtype` (None or torch.bfloat16) is flax's compute dtype. Parameters and
 running statistics stay float32 whatever it is, and are cast at use. None
@@ -132,12 +134,9 @@ class BatchNorm(nn.Module):
             x = x.float()  # statistics and affine in float32
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            if parallel.is_distributed():
-                count = torch.full((1,), x.numel() // x.shape[-1], dtype=x.dtype, device=x.device)
-                sums = parallel.all_reduce_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
-                mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
-            else:
-                mean, mean_sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+            count = torch.full((1,), x.numel() // x.shape[-1], dtype=x.dtype, device=x.device)
+            sums = parallel.all_reduce_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
+            mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
